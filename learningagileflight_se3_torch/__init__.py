@@ -3,20 +3,25 @@
 The PyTorch port of `learningagileflight_se3_tpu` (the JAX reference, which
 stays beside it unchanged).  It imports `torch` and numpy, never `jax`.
 
-This slice holds the serving path: the batched control-limited DDP solver
-and the 10 Hz deployment tick above it.
+It holds the batched control-limited DDP solver, the 10 Hz deployment tick
+above it, and stage-2 training: differentiable-MPC RL of DNN1 with the
+analytic (implicit-function VJP) and finite-difference learning signals.
 
 Layering (bottom -> top):
   config.py  frozen dataclasses mirroring the JAX package's configs
   core/      quaternion / rotation math
   dynamics/  13-state quadrotor ODE and the forward-Euler step
-  costs/     goal / traversal / thrust stage costs
-  solver/    chol4, boxQP, closed-form derivatives, the batched DDP solver
-  ops/       the two CUDA kernels (csrc/) with their plain PyTorch versions
-  geometry/  gate kinematics and the 18-dim DNN2 window input
+  costs/     goal / traversal / thrust stage costs, the shooting cost
+  solver/    chol4, boxQP, closed-form derivatives, the batched DDP solver,
+             the differentiable solve (diff.py)
+  ops/       the three CUDA kernels (csrc/) with their plain PyTorch versions
+  geometry/  gate kinematics, the 18-dim DNN2 window input, the collision
+             score and trajectory reward
   models/    DNN1/DNN2 MLPs and the scenario sampler
+  policy.py  the RL learning signals through the batched solve
+  train/     stage-2 RL (rl.py)
   sim/       traversal-time fixed point and the external-simulator tick
-  utils/     flax -> torch weight conversion
+  utils/     flax -> torch weight conversion, training-state checkpoints
 
 A tensor on the CPU runs through the plain PyTorch versions; a tensor on a
 CUDA device runs through the kernels (built with nvcc at first use).

@@ -122,6 +122,23 @@ class GateMotionConfig:
     sim_dt: float = 0.01
 
 
+@dataclasses.dataclass(frozen=True)
+class LearnedGradConfig:
+    """Finite-difference learning-signal semantics (probe step, clip and
+    the per-coordinate scales; the analytic signal applies the same trust
+    region)."""
+
+    delta: float = 1e-3
+    clip: float = 0.5
+    pos_scale: float = 0.1
+    # angle grads scaled by 1/(500*a_i^2 + 5)
+    ang_scale_a: float = 500.0
+    ang_scale_b: float = 5.0
+    t_probe: float = 0.1
+    t_step: float = 0.05
+    t_threshold: float = 2.0
+
+
 def preset(variant: Variant = Variant.MAIN):
     """Return (QuadParams, CostWeights, SolverConfig, RewardConfig,
     SamplerConfig, GateMotionConfig) for a reference variant."""

@@ -60,3 +60,26 @@ def traversal_weight(k, dt, t, w: CostWeights):
 def final_cost(x, goal_pos, w: CostWeights):
     """Terminal cost == goal cost."""
     return goal_cost(x, goal_pos, w)
+
+
+def stage_cost(x, u, u_prev, k, dt, t, goal_pos, tra_pos, tra_quat, w: CostWeights):
+    """Full stage cost C_k, batched over leading dims (k and t broadcast)."""
+    return (
+        traversal_weight(k, dt, t, w) * traversal_cost(x, tra_pos, tra_quat, w)
+        + goal_cost(x, goal_pos, w)
+        + thrust_cost(u, w)
+        + w.w_du * torch.sum((u - u_prev) ** 2, dim=-1)
+    )
+
+
+def total_trajectory_cost(X, U, u_last, dt, t, goal_pos, tra_pos, tra_quat, w: CostWeights):
+    """Total cost of X (..., H+1, 13), U (..., H, 4) with U_{-1} = u_last
+    (..., 4); t (...), goal_pos / tra_pos (..., 3), tra_quat (..., 4).
+    The shooting objective the differentiable solver's VJP differentiates."""
+    H = U.shape[-2]
+    U_prev = torch.cat([u_last[..., None, :], U[..., :-1, :]], dim=-2)
+    ks = torch.arange(H, dtype=X.dtype, device=X.device)
+    stages = stage_cost(X[..., :-1, :], U, U_prev, ks, dt, t[..., None],
+                        goal_pos[..., None, :], tra_pos[..., None, :],
+                        tra_quat[..., None, :], w)
+    return torch.sum(stages, dim=-1) + final_cost(X[..., H, :], goal_pos, w)

@@ -1,10 +1,13 @@
-// Shared device code of the two kernels (rollout.cu, riccati_fused.cu).
+// Shared device code of the kernels (rollout.cu, riccati_fused.cu,
+// riccati_unfused.cu).
 //
 // The launch-constant struct, NaN-propagating max/min/clip, the attitude
-// error, and the per-scenario 4x4 Cholesky and projected-Newton boxQP: the
-// lane helpers of learningagileflight_se3_tpu/ops/riccati_pallas.py
-// (_chol4, _chol4_solve, _masked4, _boxqp_lanes) written for one thread.
-// Their plain PyTorch versions are solver/chol4.py and solver/boxqp.py.
+// error, the per-scenario 4x4 Cholesky and projected-Newton boxQP, and the
+// sparse DDP second-order term: the lane helpers of
+// learningagileflight_se3_tpu/ops/riccati_pallas.py (_chol4, _chol4_solve,
+// _masked4, _boxqp_lanes, _h2_lanes) written for one thread.  Their plain
+// PyTorch versions are solver/chol4.py, solver/boxqp.py and
+// solver/analytic.py explicit_h2.
 //
 // NaN semantics follow jnp.maximum / jnp.clip, which propagate a NaN;
 // CUDA's fmaxf / fminf drop it, so they are not used anywhere here.
@@ -198,6 +201,48 @@ __device__ void boxqp(const T H[4][4], const T g[4], const T lo[4], const T hi[4
 #pragma unroll
   for (int i = 0; i < 4; ++i) grad[i] = g[i] + Hd[i];
   free_mask4(d, grad, lo, hi, fr);
+}
+
+// DDP second-order term: the nonzero blocks of hess_zu(Vz . f)(zu)
+// (_h2_lanes, solver/analytic.py explicit_h2) at the pre-update Vz, scaled
+// by dt and added to Qzz and Quz (its Quu block is zero).  q = zu[6..9],
+// usum = u0 + u1 + u2 + u3.
+template <typename T>
+__device__ __forceinline__ void add_ddp_term(const Consts& cs, const T q[4], const T usum,
+                                             const T Vz[NZ], T Qzz[NZ][NZ], T Quz[NU][NZ]) {
+  const T dt = T(cs.dt), m = T(cs.mass);
+  const T Jx = T(cs.Jx), Jy = T(cs.Jy), Jz = T(cs.Jz);
+  const T w0 = q[0], x0 = q[1], y0 = q[2], z0 = q[3];
+  const T a_ = Vz[3], b_ = Vz[4], c_ = Vz[5];
+  const T Tm = usum / m;
+  const T Hqq[4][4] = {{T(0), -2 * b_, 2 * a_, T(0)},
+                       {-2 * b_, -4 * c_, T(0), 2 * a_},
+                       {2 * a_, T(0), -4 * c_, 2 * b_},
+                       {T(0), 2 * a_, 2 * b_, T(0)}};
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) Qzz[6 + i][6 + j] += dt * (Hqq[i][j] * Tm);
+  const T hqu[4] = {(2 * y0 * Vz[3] - 2 * x0 * Vz[4]) / m,
+                    (2 * z0 * Vz[3] - 2 * w0 * Vz[4] - 4 * x0 * Vz[5]) / m,
+                    (2 * w0 * Vz[3] + 2 * z0 * Vz[4] - 4 * y0 * Vz[5]) / m,
+                    (2 * x0 * Vz[3] + 2 * y0 * Vz[4]) / m};
+  const T* lq = Vz + 6;
+  const T P[4][3] = {{lq[1] * T(0.5), lq[2] * T(0.5), lq[3] * T(0.5)},
+                     {-lq[0] * T(0.5), lq[3] * T(0.5), -lq[2] * T(0.5)},
+                     {-lq[3] * T(0.5), -lq[0] * T(0.5), lq[1] * T(0.5)},
+                     {lq[2] * T(0.5), -lq[1] * T(0.5), -lq[0] * T(0.5)}};
+  for (int i = 0; i < 4; ++i)
+    for (int cc = 0; cc < 3; ++cc) {
+      Qzz[6 + i][10 + cc] += dt * P[i][cc];
+      Qzz[10 + cc][6 + i] += dt * P[i][cc];
+    }
+  const T d1 = T(cs.Jz - cs.Jy) * (Vz[10] / Jx);
+  const T d2 = T(cs.Jx - cs.Jz) * (Vz[11] / Jy);
+  const T d3 = T(cs.Jy - cs.Jx) * (Vz[12] / Jz);
+  const T Sww[3][3] = {{T(0), d3, d2}, {d3, T(0), d1}, {d2, d1, T(0)}};
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) Qzz[10 + i][10 + j] += -dt * Sww[i][j];
+  for (int j = 0; j < NU; ++j)
+    for (int i = 0; i < 4; ++i) Quz[j][6 + i] += dt * hqu[i];
 }
 
 }  // namespace laf

@@ -279,38 +279,7 @@ riccati_fused_kernel(const Consts c, const int H, const int B,
     }
 
     // ---- DDP second-order term (_h2_lanes) with the pre-update Vz ----
-    if (c.use_ddp) {
-      const T a_ = Vz[3], b_ = Vz[4], c_ = Vz[5];
-      const T Tm = (u[0] + u[1] + u[2] + u[3]) / m;
-      const T Hqq[4][4] = {{T(0), -2 * b_, 2 * a_, T(0)},
-                           {-2 * b_, -4 * c_, T(0), 2 * a_},
-                           {2 * a_, T(0), -4 * c_, 2 * b_},
-                           {T(0), 2 * a_, 2 * b_, T(0)}};
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) Qzz[6 + i][6 + j] += dt * (Hqq[i][j] * Tm);
-      const T hqu[4] = {(2 * y0 * Vz[3] - 2 * x0 * Vz[4]) / m,
-                        (2 * z0 * Vz[3] - 2 * w0 * Vz[4] - 4 * x0 * Vz[5]) / m,
-                        (2 * w0 * Vz[3] + 2 * z0 * Vz[4] - 4 * y0 * Vz[5]) / m,
-                        (2 * x0 * Vz[3] + 2 * y0 * Vz[4]) / m};
-      const T* lq = Vz + 6;
-      const T P[4][3] = {{lq[1] * T(0.5), lq[2] * T(0.5), lq[3] * T(0.5)},
-                         {-lq[0] * T(0.5), lq[3] * T(0.5), -lq[2] * T(0.5)},
-                         {-lq[3] * T(0.5), -lq[0] * T(0.5), lq[1] * T(0.5)},
-                         {lq[2] * T(0.5), -lq[1] * T(0.5), -lq[0] * T(0.5)}};
-      for (int i = 0; i < 4; ++i)
-        for (int cc = 0; cc < 3; ++cc) {
-          Qzz[6 + i][10 + cc] += dt * P[i][cc];
-          Qzz[10 + cc][6 + i] += dt * P[i][cc];
-        }
-      const T d1 = T(c.Jz - c.Jy) * (Vz[10] / Jx);
-      const T d2 = T(c.Jx - c.Jz) * (Vz[11] / Jy);
-      const T d3 = T(c.Jy - c.Jx) * (Vz[12] / Jz);
-      const T Sww[3][3] = {{T(0), d3, d2}, {d3, T(0), d1}, {d2, d1, T(0)}};
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) Qzz[10 + i][10 + j] += -dt * Sww[i][j];
-      for (int j = 0; j < NU; ++j)
-        for (int i = 0; i < 4; ++i) Quz[j][6 + i] += dt * hqu[i];
-    }
+    if (c.use_ddp) add_ddp_term(c, zu + 6, u[0] + u[1] + u[2] + u[3], Vz, Qzz, Quz);
 
     // ---- Tassa regularization via B^T B and B^T A ----
     const T bb = bv[0] * bv[0] + bv[1] * bv[1] + bv[2] * bv[2];

@@ -6,9 +6,13 @@ State  x = [r_I(3), v_I(3), q(4, wxyz), w_B(3)]  (..., 13)
 Input  u = [f1, f2, f3, f4]  per-rotor thrusts   (..., 4)
 
 Forward Euler without quaternion renormalization, as in the reference.
+`rollout` is Euler only (the closed loop's RK4 and renormalised steps are
+not ported yet).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,3 +50,24 @@ def quad_ode(x, u, params: QuadParams):
 def euler_step(x, u, dt, params: QuadParams):
     """x_{k+1} = x_k + dt f(x_k, u_k), no quaternion renormalization."""
     return x + dt * quad_ode(x, u, params)
+
+
+def rollout(x0, U, dt, params: QuadParams):
+    """Roll controls U (..., H, 4) from x0 (..., 13) with Euler steps;
+    returns X (..., H+1, 13)."""
+    xs = [x0]
+    for k in range(U.shape[-2]):
+        xs.append(euler_step(xs[-1], U[..., k, :], dt, params))
+    return torch.stack(xs, dim=-2)
+
+
+def rotor_positions(x, wing_len: float):
+    """World positions of the 4 rotor tips, (..., 4, 3): the X-configuration
+    body offsets (+-a, +-a, 0), a = wing_len / 2 / sqrt(2), rotated by the
+    body -> world DCM."""
+    r, q = x[..., 0:3], x[..., 6:10]
+    a = wing_len * 0.5 / math.sqrt(2.0)
+    tips_B = torch.tensor([[a, a, 0.0], [-a, a, 0.0], [-a, -a, 0.0], [a, -a, 0.0]],
+                          dtype=x.dtype, device=x.device)
+    # tips_B @ C_I_B^T with C_I_B = C_B_I^T
+    return r[..., None, :] + tips_B @ quat_to_dcm_w2b(q)

@@ -42,6 +42,7 @@ _i = ctypes.c_int
 _ENTRY_POINTS = {
     "laf_rollout_f32": 12, "laf_rollout_f64": 12,
     "laf_riccati_fused_f32": 15, "laf_riccati_fused_f64": 15,
+    "laf_riccati_unfused_f32": 18, "laf_riccati_unfused_f64": 18,
 }
 
 

@@ -14,10 +14,12 @@ import re
 import numpy as np
 import torch
 
-from learningagileflight_se3_torch.models.mlp import MLP, make_dnn2
+from learningagileflight_se3_torch.models.mlp import MLP, make_dnn1, make_dnn2
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "weights")
 NN3_1_DNN2 = os.path.join(WEIGHTS_DIR, "nn3_1_dnn2.npz")
+NN_PRE_DNN1 = os.path.join(WEIGHTS_DIR, "nn_pre_dnn1.npz")    # after pretraining
+NN_DEEP_DNN1 = os.path.join(WEIGHTS_DIR, "nn_deep_dnn1.npz")  # after RL
 
 _KEY = re.compile(r"(?:^|/)Dense_(\d+)/(kernel|bias)$")
 
@@ -50,10 +52,18 @@ def jax_params_to_torch(params_np) -> dict:
     return state
 
 
-def load_dnn2(path: str = NN3_1_DNN2) -> MLP:
-    """DNN2 with the exported flax weights (float32, on the CPU)."""
+def _load(model: MLP, path: str) -> MLP:
     with np.load(path) as z:
         params = {k: z[k] for k in z.files}
-    model = make_dnn2()
     model.load_state_dict(jax_params_to_torch(params))
     return model
+
+
+def load_dnn2(path: str = NN3_1_DNN2) -> MLP:
+    """DNN2 with the exported flax weights (float32, on the CPU)."""
+    return _load(make_dnn2(), path)
+
+
+def load_dnn1(path: str = NN_PRE_DNN1) -> MLP:
+    """DNN1 with the exported flax weights (float32, on the CPU)."""
+    return _load(make_dnn1(), path)

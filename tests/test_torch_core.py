@@ -55,7 +55,7 @@ def states(r, n=N):
 
 # ------------------------------------------------------------------ configs
 CONFIG_CLASSES = ["QuadParams", "CostWeights", "SolverConfig", "RewardConfig",
-                  "SamplerConfig", "GateMotionConfig"]
+                  "SamplerConfig", "GateMotionConfig", "LearnedGradConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA device: each hand-written kernel against its plain
-PyTorch version on the card, and the kernel-backed solver against the plain
-solver.  Marked `gpu`; skipped where torch.cuda.is_available() is False.
+PyTorch version on the card, K3 against K2, the kernel-backed solver against
+the plain solver, and the RL learning signals on the card against the CPU.
+Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
 a machine without JAX:
@@ -12,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_torch.ops import build, riccati_fused, rollout
+from learningagileflight_se3_torch.config import CostWeights, QuadParams, RewardConfig, SolverConfig
+from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
 from learningagileflight_se3_torch.ops.inputs import as_tensors, main_path_inputs
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 
@@ -40,7 +41,8 @@ def _rel_err(a, b):
 
 def test_kernels_build(cuda):
     lib = build.library()
-    assert "rollout_kernel" in lib.ptxas_log and "riccati_fused_kernel" in lib.ptxas_log
+    for kernel in ("rollout_kernel", "riccati_fused_kernel", "riccati_unfused_kernel"):
+        assert kernel in lib.ptxas_log
 
 
 @pytest.fixture(scope="module")
@@ -134,3 +136,69 @@ def test_kernel_solver_matches_plain_solver(cuda):
     both = sg.converged.cpu() & sc.converged
     rel = (sg.cost.cpu() - sc.cost).abs() / sc.cost.abs().clamp_min(1.0)
     assert both.float().mean() >= 0.5 and float(rel[both].median()) < 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_unfused_kernel_matches_plain_and_fused(cuda, main_path, dtype):
+    """K3 against its plain version (K2's gates) and, in f64, against K2 on
+    the same trajectory."""
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
+    kw = dict(dt=C.dt, lb=C.u_lb, ub=C.u_ub)
+    derivs = [a.to(dtype) for a in riccati_unfused.derivatives_plain(*main_path[1], P, W, C)]
+    n = riccati_unfused.launches
+    out = riccati_unfused.riccati_backward_unfused(*derivs, P, **kw)
+    torch.cuda.synchronize()
+    assert riccati_unfused.launches == n + 1
+    refs = [riccati_unfused.riccati_unfused_plain(*derivs, P, **kw)]
+    if dtype == torch.float64:
+        refs.append(riccati_fused.riccati_backward(*main_path[1], P, W, C))
+    tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
+            else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
+    for ref in refs:
+        for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
+            if name == "fail":
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            else:
+                assert _rel_err(a, b) < tols[name], name
+
+
+@pytest.mark.parametrize("signal", ["analytic", "fd"])
+def test_learning_signal_on_card_matches_cpu(cuda, signal):
+    """The RL learning signal through the kernels (CUDA, f64) against the
+    plain versions (CPU, f64), on the lanes whose base solve converged on
+    both: in f64 both paths run the same algorithm to 1e-9 in cost (see
+    test_kernel_solver_matches_plain_solver), so rewards agree to 1e-7 and
+    the signal to rtol 1e-6 per lane."""
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+    from learningagileflight_se3_torch.policy import (
+        make_analytic_gradient_batched,
+        make_fd_gradient_batched,
+    )
+    from learningagileflight_se3_torch.utils.weights import load_dnn1
+
+    B = 32
+    cfg = SolverConfig(horizon=12, max_iters=40, quantize_t=signal == "fd")
+    scen = sample_scenarios(torch.Generator().manual_seed(5), B, dtype=torch.float64)
+    probs = scenario_to_problem(scen)
+    with torch.no_grad():
+        out = load_dnn1()(scen)
+    args = [probs["x0"], torch.zeros((B, 4), dtype=torch.float64), probs["goal_pos"],
+            probs["gate_pts"], out[:, 0:3], out[:, 3:6], out[:, 6]]
+    solve = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)
+    sk = solve(*[args[i].to(cuda) for i in (0, 1, 2, 4, 5, 6)])
+    sp = solve(*[args[i] for i in (0, 1, 2, 4, 5, 6)])
+    both = sk.converged.cpu() & sp.converged
+    assert both.float().mean() >= 0.5
+    make = make_analytic_gradient_batched if signal == "analytic" else make_fd_gradient_batched
+    sig = make(QuadParams(), CostWeights(), cfg, RewardConfig())
+    n = (rollout.launches, riccati_fused.launches)
+    gk, rk = sig(*[a.to(cuda) for a in args])
+    assert rollout.launches > n[0] and riccati_fused.launches > n[1]
+    gp, rp = sig(*args)
+    torch.testing.assert_close(rk.cpu()[both], rp[both], rtol=1e-7, atol=1e-7)
+    # per lane; the fd signal's 9 probe solves per lane may each take another
+    # basin on one path (the basin flips of chip_smoke.py phase 5), so a few
+    # lanes may differ there
+    gk, gp = gk.cpu()[both], gp[both]
+    lane_ok = ((gk - gp).abs() <= 1e-8 + 1e-6 * gp.abs()).all(dim=1)
+    assert float(lane_ok.float().mean()) >= (1.0 if signal == "analytic" else 0.9)
