@@ -8,10 +8,13 @@ if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
-  2 build    nvcc build time and each kernel's ptxas registers / stack
-  3 kernels  K1 and K2 against their plain versions at H=50, B=2048 (f64 and
-             f32) and each one's time beside the plain version's (CUDA
-             events, median of 20)
+  2 build    nvcc build time, each kernel's ptxas registers / shared memory
+             / stack, and K1's gain ring (dynamic shared memory)
+  3 kernels  K1 and K2 against their plain versions at H=50 and B=2048 (the
+             bench.py point), 256 (the analytic RL step) and 1 (the tick), f64
+             and f32; each f32 time (CUDA events, the card's time alone)
+             beside its bound at that shape, the time of the one-thread-per-
+             scenario kernel it replaced, and the plain version's
   4 solve    B=2048, H=50, f32 at the bench.py config: solves/s, iterations,
              line-search trips, status histogram, quality against a golden run
   5 paths    kernel path (CUDA) against plain path (CPU) at H=20, B=256
@@ -19,7 +22,7 @@ Phases, each printing its numbers on lines of its own:
              and f32), then the deployed budget's per-tick latency
   7 K3       the unfused backward sweep against its plain version (f64, f32)
              and against K2 on the same trajectory (f64), with the times of
-             K3, its plain version and K2 (f32, H=50, B=2048)
+             K3, its bound, its plain version and K2 (f32, H=50, B=2048)
   8 train    stage-2 RL of DNN1 at the --full settings (B=256, H=50, f32):
              nn_pre / nn_deep rewards, K1 and K2 against their plain
              versions on the inputs of the analytic (B=256) and the fd
@@ -29,8 +32,11 @@ Phases, each printing its numbers on lines of its own:
              signals on CUDA against the CPU
 
 The last three lines are the kernels JSON (each row's `launches` is the
-training path's count, `launches_by_path` each path's own), the nvidia-smi
-line and {"ok": true, "device": {...}}.
+count of phase 4's solve, the main path, `launches_by_path` each path's
+own; `bound_ms` the least time the card could take at B=2048, `library_ms`
+null: no single PyTorch call computes these functions), the nvidia-smi line
+and {"ok": true, "device": {...}}.  Every time is printed with the card's
+nvidia-smi name and power limit.
 
 Usage: python3 chip_smoke.py
 """
@@ -50,6 +56,25 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_TIMED = 20
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
+# kernel's bound is the larger of the bytes it must move over the memory
+# rate and its operations over the f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Operations per scenario and step, counted from the kernels' code (a
+# multiply and an add are two).  K1: z - z_ref 17, the gains 144, the stage
+# cost 150, the Euler step 110.  K2: the Vzz update 5.5k, M = Vzz A and
+# Qzz = A^T M 1.3k each, the value recursion 0.9k, the K solve 0.8k, B^T Vzz
+# 0.6k, Quz and Quu 0.5k, the rest 1.0k, and 3 boxQP iterations of 350,
+# about what the solver's trajectories need of the 6 (the later ones repeat
+# the iterate, and the kernels stop there).  K3: K2's, with dense products in place of the
+# block-sparse ones (M and Qzz 9.8k each, B^T Vzz and Quz 2.3k each).
+K1_FLOPS, K2_FLOPS, K3_FLOPS = 420, 13_000, 35_600
+# Times of the one-thread-per-scenario kernels that K1 and K2 replaced, f32,
+# H=50 (PERF.md section 6: CUDA events around the wrapper, the host's
+# enqueue included; B=1 from a torch.profiler trace of the tick)
+ONE_THREAD_MS = {("K1", 2048): 0.2985, ("K2", 2048): 2.0112, ("K1", 256): 0.1446,
+                 ("K2", 256): 1.9627, ("K1", 1): 0.15, ("K2", 1): 1.82}
 # the kernels' test inputs are the solver's trajectories after this many DDP
 # iterations: past the first iterations, where every backward sweep fails
 # and the gains are NaN, and before the regularisation has fallen so far that
@@ -69,18 +94,33 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n=N_TIMED):
-    """Median over n runs of fn's device time (CUDA events), after a warm-up."""
+def median_ms(fn, n=N_TIMED, card_only=False):
+    """Median over n runs of fn's time on CUDA events, after a warm-up.  With
+    card_only the card first spins for about a millisecond, so that the
+    host's enqueue of fn (the wrapper's checks and allocations) overlaps the
+    spin and the events time the card's work alone."""
     fn()
     times = []
     for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if card_only:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(inputs, outputs, flops):
+    """(bound_ms, bound_by): the least time the card could take to read every
+    input once, write every output once (in the inputs' dtype) and do
+    `flops` f32 operations."""
+    size = inputs[0].element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + sum(t.numel() * size for t in outputs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def rel_err(a, b):
@@ -124,6 +164,7 @@ def read_plain_calls():
 class Smoke:
     def __init__(self):
         self.failures = []
+        self.smi = "nvidia-smi not read"
         self.kernels = {}
         self.path_launches = {}  # path -> read_launches() over that path's run
 
@@ -153,7 +194,7 @@ class Smoke:
 
     # ------------------------------------------------------------- 2 build
     def build(self):
-        from learningagileflight_se3_torch.ops import build
+        from learningagileflight_se3_torch.ops import build, rollout
 
         t0 = time.perf_counter()
         lib = build.library()
@@ -162,6 +203,8 @@ class Smoke:
         for line in lib.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "stack frame" in line:
                 log(f"ptxas: {line.strip()}")
+        log(f"K1 gain ring (dynamic shared memory per block): f32 {rollout.ring_bytes(torch.float32)} B, "
+            f"f64 {rollout.ring_bytes(torch.float64)} B")
 
     # ----------------------------------------------------------- 3 kernels
     def kernels_vs_plain(self):
@@ -169,40 +212,46 @@ class Smoke:
         from learningagileflight_se3_torch.ops import riccati_fused, rollout
         from learningagileflight_se3_torch.ops.inputs import main_path_inputs
 
-        H, B = 50, 2048
+        H = 50
         P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
-        t0 = time.perf_counter()
-        k1_64, k2_64 = main_path_inputs(H, B, device="cuda", iters=INPUT_ITERS)
-        self.k2_inputs = k2_64  # phase 7 holds K3 against K2 on them
-        torch.cuda.synchronize()
-        log(f"inputs: bench.py scenarios after {INPUT_ITERS} DDP iterations (f64), "
-            f"{time.perf_counter() - t0:.2f} s")
-        for dtype in (torch.float64, torch.float32):
-            name = "f64" if dtype == torch.float64 else "f32"
-            args = [a.to(dtype) for a in k1_64]
-            out = rollout.rollout_forward(*args, P, W, C)
+        # the bench.py point, the analytic RL step, the tick
+        for B in (2048, 256, 1):
+            t0 = time.perf_counter()
+            k1_64, k2_64 = main_path_inputs(H, B, device="cuda", iters=INPUT_ITERS)
+            if B == 2048:
+                self.k2_inputs = k2_64  # phase 7 holds K3 against K2 on them
             torch.cuda.synchronize()
-            errs = self.check_rollout(f"K1 {name}", out, rollout.rollout_forward_plain(*args, P, W, C),
-                                      dtype)
-            if dtype == torch.float32:
-                k_ms = median_ms(lambda: rollout.rollout_forward(*args, P, W, C))
-                p_ms = median_ms(lambda: rollout.rollout_forward_plain(*args, P, W, C))
-                log(f"K1 f32 time: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (H={H}, B={B}, median of {N_TIMED})")
-                self.kernels["K1"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms)
-            # K2
-            args = [a.to(dtype) for a in k2_64]
-            out = riccati_fused.riccati_backward(*args, P, W, C)
-            torch.cuda.synchronize()
-            ref = riccati_fused.riccati_backward_plain(*args, P, W, C)
-            errs = self.check_sweep(f"K2 {name}", out, ref, dtype)
-            if dtype == torch.float32:
-                k_ms = median_ms(lambda: riccati_fused.riccati_backward(*args, P, W, C))
-                p_ms = median_ms(lambda: riccati_fused.riccati_backward_plain(*args, P, W, C))
-                log(f"K2 f32 time: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (H={H}, B={B}, median of {N_TIMED})")
-                self.kernels["K2"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms)
-            else:
-                k_ms = median_ms(lambda: riccati_fused.riccati_backward(*args, P, W, C), n=5)
-                log(f"K2 f64 time: kernel {k_ms:.4f} ms (median of 5)")
+            log(f"inputs: H={H}, B={B}: bench.py scenarios after {INPUT_ITERS} DDP iterations (f64), "
+                f"{time.perf_counter() - t0:.2f} s")
+            for dtype in (torch.float64, torch.float32):
+                name = f"{'f64' if dtype == torch.float64 else 'f32'}, B={B}"
+                a1 = [a.to(dtype) for a in k1_64]
+                out1 = rollout.rollout_forward(*a1, P, W, C)
+                torch.cuda.synchronize()
+                errs1 = self.check_rollout(f"K1 {name}", out1, rollout.rollout_forward_plain(*a1, P, W, C),
+                                           dtype)
+                a2 = [a.to(dtype) for a in k2_64]
+                out2 = riccati_fused.riccati_backward(*a2, P, W, C)
+                torch.cuda.synchronize()
+                errs2 = self.check_sweep(f"K2 {name}", out2, riccati_fused.riccati_backward_plain(*a2, P, W, C),
+                                         dtype)
+                if dtype == torch.float64:
+                    continue
+                runs = {"K1": (lambda: rollout.rollout_forward(*a1, P, W, C),
+                               lambda: rollout.rollout_forward_plain(*a1, P, W, C),
+                               bound(a1, out1, K1_FLOPS * B * H), errs1),
+                        "K2": (lambda: riccati_fused.riccati_backward(*a2, P, W, C),
+                               lambda: riccati_fused.riccati_backward_plain(*a2, P, W, C),
+                               bound(a2, out2, K2_FLOPS * B * H), errs2)}
+                for k, (kernel, plain, (b_ms, b_by), errs) in runs.items():
+                    k_ms = median_ms(kernel, card_only=True)
+                    p_ms = median_ms(plain, n=5)
+                    log(f"{k} f32 time, H={H}, B={B}: kernel {k_ms:.4f} ms (the card's time, median of "
+                        f"{N_TIMED}); bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of it reached; "
+                        f"one-thread kernel {ONE_THREAD_MS[k, B]} ms; plain {p_ms:.4f} ms (median of 5) [{self.smi}]")
+                    if B == 2048:
+                        self.kernels[k] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                               bound_by=b_by, library_ms=None)
 
     def check_rollout(self, what, out, ref, dtype):
         """Hold K1's outputs (Zn, Un, cost) against its plain version's, on
@@ -293,7 +342,8 @@ class Smoke:
         s = sols[0]
         hist = torch.bincount(s.status.long(), minlength=5).tolist()
         log(f"solve: B={B} H=50 f32; rep times {[round(x, 4) for x in times]} s; "
-            f"{B / min(times):.1f} solves/s (synced, best of 3); first call {warm.iterations.float().mean().item():.1f} iters")
+            f"{B / min(times):.1f} solves/s (synced, best of 3); first call {warm.iterations.float().mean().item():.1f} "
+            f"iters [{self.smi}]")
         log(f"solve: mean iters {s.iterations.float().mean().item():.2f} max {int(s.iterations.max())}; "
             f"line-search trips {int(s.ls_evals)}; status histogram {hist}; "
             f"converged_frac {s.converged.float().mean().item():.4f}")
@@ -309,7 +359,7 @@ class Smoke:
         log(f"solve: golden (150 iters, full ladder) {time.perf_counter() - t0:.2f} s, "
             f"converged {g.converged.float().mean().item():.4f}; frac_within_1pct {(excess < 0.01).mean():.4f} "
             f"frac_within_1e3 {(excess < 1e-3).mean():.4f} median excess {np.median(excess):.3e} "
-            f"q90 {np.percentile(excess, 90):.3e}")
+            f"q90 {np.percentile(excess, 90):.3e} [{self.smi}]")
         self.check(bool(np.isfinite(Jb).all()) and s.control_traj.shape == (B, 50, 4),
                    "phase 4 solution not finite or misshapen")
 
@@ -404,7 +454,7 @@ class Smoke:
         ms = lat * 1e3
         log(f"tick: deployed budget (PYBULLET, H=50, max_iters=30, secant, f32): per-tick ms "
             f"{[round(float(x), 3) for x in ms]}; p50 {np.percentile(ms, 50):.3f} ms "
-            f"p90 {np.percentile(ms, 90):.3f} ms; launches K1 {n['K1']} K2 {n['K2']}")
+            f"p90 {np.percentile(ms, 90):.3f} ms; launches K1 {n['K1']} K2 {n['K2']} [{self.smi}]")
 
 
     # ---------------------------------------------------------------- 7 K3
@@ -430,13 +480,15 @@ class Smoke:
                                  dtype)
                 continue
             k2_args = [a.to(dtype) for a in k2_64]
-            k_ms = median_ms(lambda: riccati_unfused.riccati_backward_unfused(*args, P, **kw))
+            k_ms = median_ms(lambda: riccati_unfused.riccati_backward_unfused(*args, P, **kw), card_only=True)
             p_ms = median_ms(lambda: riccati_unfused.riccati_unfused_plain(*args, P, **kw), n=5)
-            f_ms = median_ms(lambda: riccati_fused.riccati_backward(*k2_args, P, W, C))
-            log(f"K3 f32 time: kernel {k_ms:.4f} ms (median of {N_TIMED}), plain {p_ms:.4f} ms "
-                f"(median of 5), K2 on the same trajectory {f_ms:.4f} ms (median of {N_TIMED}); "
-                f"H={H}, B={B}")
-            self.kernels["K3"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms)
+            f_ms = median_ms(lambda: riccati_fused.riccati_backward(*k2_args, P, W, C), card_only=True)
+            b_ms, b_by = bound(args, out, K3_FLOPS * B * H)
+            log(f"K3 f32 time: kernel {k_ms:.4f} ms (the card's time, median of {N_TIMED}), bound "
+                f"{b_ms:.4f} ms ({b_by}), plain {p_ms:.4f} ms (median of 5), K2 on the same trajectory "
+                f"{f_ms:.4f} ms; H={H}, B={B} [{self.smi}]")
+            self.kernels["K3"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
         self.k3_launches = riccati_unfused.launches
 
     # ------------------------------------------------------------- 8 train
@@ -636,12 +688,13 @@ class Smoke:
             torch.cuda.synchronize()
             self.check_sweep(f"K2 {name} ({where})", out,
                              riccati_fused.riccati_backward_plain(*a2, *k2_args, **k2_kw), dtype)
-        ms = [median_ms(lambda: rollout.rollout_forward(*a1, *k1_args, **k1_kw)),
+        ms = [median_ms(lambda: rollout.rollout_forward(*a1, *k1_args, **k1_kw), card_only=True),
               median_ms(lambda: rollout.rollout_forward_plain(*a1, *k1_args, **k1_kw), n=5),
-              median_ms(lambda: riccati_fused.riccati_backward(*a2, *k2_args, **k2_kw)),
+              median_ms(lambda: riccati_fused.riccati_backward(*a2, *k2_args, **k2_kw), card_only=True),
               median_ms(lambda: riccati_fused.riccati_backward_plain(*a2, *k2_args, **k2_kw), n=5)]
         log(f"f32 time ({where}): K1 kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms; "
-            f"K2 kernel {ms[2]:.4f} ms, plain {ms[3]:.4f} ms (kernel median of {N_TIMED}, plain of 5)")
+            f"K2 kernel {ms[2]:.4f} ms, plain {ms[3]:.4f} ms (kernel: the card's time, median of "
+            f"{N_TIMED}; plain: median of 5) [{self.smi}]")
 
     def _train_split(self, P, W, R, cfg, scen, model):
         """The analytic step's time by part: the forward solve, the VJP
@@ -679,8 +732,8 @@ class Smoke:
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             times = dict(solve=t1 - t0, reward=t2 - t1, vjp=t3 - t2)
-        log(f"train: analytic step split (B={B}, host synced): " +
-            ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items()))
+        log(f"train: analytic step (B={B}, host synced) {sum(times.values()) * 1e3:.1f} ms: " +
+            ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items()) + f" [{self.smi}]")
 
     def _signals_cuda_vs_cpu(self, P, W, R, model):
         """Both learning signals at H=20, B=64: CUDA f32 (the kernels)
@@ -777,19 +830,19 @@ def main():
     if s.failures or len(s.kernels) != 3:
         log(f"chip_smoke FAILED: {s.failures}")
         return 1
-    # `launches` is the training path's count (phase 8), K3's is phase 7's (it
-    # is on no path); `launches_by_path` has each path's own count, the
-    # counters set to 0 just before that path and read just after
+    # `launches` is the main path's count (phase 4's solve), K3's is phase
+    # 7's (it is on no path); `launches_by_path` has each path's own count,
+    # the counters set to 0 just before that path and read just after
     by_path = lambda k: {path: n[k] for path, n in s.path_launches.items()}
     src = "learningagileflight_se3_torch/csrc/"
     rows = [
         dict(name="K1 rollout_forward", route="cuda", source=src + "rollout.cu",
              replaces="learningagileflight_se3_tpu/ops/rollout_pallas.py:167",
-             launches=s.path_launches["train"]["K1"], launches_by_path=by_path("K1"),
+             launches=s.path_launches["solve"]["K1"], launches_by_path=by_path("K1"),
              **s.kernels["K1"]),
         dict(name="K2 riccati_backward_fused", route="cuda", source=src + "riccati_fused.cu",
              replaces="learningagileflight_se3_tpu/ops/riccati_fused.py:446",
-             launches=s.path_launches["train"]["K2"], launches_by_path=by_path("K2"),
+             launches=s.path_launches["solve"]["K2"], launches_by_path=by_path("K2"),
              **s.kernels["K2"]),
         dict(name="K3 riccati_backward_unfused", route="cuda", source=src + "riccati_unfused.cu",
              replaces="learningagileflight_se3_tpu/ops/riccati_pallas.py:364",

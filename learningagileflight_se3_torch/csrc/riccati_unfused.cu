@@ -10,11 +10,11 @@
 // from the trajectory, and the products are dense.
 //
 // One thread per scenario walks the horizon in reverse (blocks of one warp,
-// the ragged last block masked), as in K2.  Per step a lane reads about 776
+// the ragged last block masked).  Per step a lane reads about 776
 // values (A 289, lzz 289, B 68, luz 68, lz 17, luu 16, lu 4, U 4, ZU 8 of
 // 21): 3.1 KB in f32, 318 MB for H=50, B=2048, about 0.1 ms at full HBM
 // bandwidth.  The batch-last layout makes each of a warp's loads one
-// coalesced transaction.  What bounds the kernel is latency, as in K2: 50
+// coalesced transaction.  What bounds the kernel is latency: 50
 // dependent steps of ~12k dense FLOPs each, one warp per SM, with the
 // working set (Vzz, A, M = Vzz A, Qzz, B, B^T Vzz, Quz, K, K^T Quu: ~1.5k
 // values) in thread-local memory cached in L1 / L2.

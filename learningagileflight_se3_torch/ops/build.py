@@ -31,8 +31,12 @@ from learningagileflight_se3_torch.config import CostWeights, QuadParams, Solver
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+# f32 division and square root in their fast forms (within 2 ulp): the IEEE
+# forms lengthen the chain of dependent work in every step of the backward
+# sweep by a third.  f64 is untouched.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-prec-div=false", "-prec-sqrt=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -130,6 +134,8 @@ def library() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(KernelConsts), _i, _i] + [_p] * n_ptr + [_p]
         fn.restype = _i
+    lib.laf_rollout_ring_bytes.argtypes = [_i]
+    lib.laf_rollout_ring_bytes.restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)
 
 

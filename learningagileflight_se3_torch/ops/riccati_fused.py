@@ -10,14 +10,11 @@ solves the projected-Newton boxQP, computes masked 4x4 Cholesky gains and
 applies the value recursion.
 
 CUDA kernel: `csrc/riccati_fused.cu` (device helpers in
-`csrc/lane_algebra.cuh`).  One thread per scenario walks the H steps.  Its
-working set (Vzz, M = Vzz A, Qzz, B^T Vzz, Quz, K, K^T Quu: ~1k values,
-4 KB in f32 and 8 KB in f64) does not fit in registers, so it lives in
-thread-local memory, which the hardware interleaves across a warp (each
-access coalesced) and caches in L1/L2.  What bounds it on the card is that
-local-memory traffic and its latency: at B=2048 there are 64 warps for 132
-SMs, too few to hide it.  A warp per scenario, with the 17x17 products
-spread over its lanes, is the next design.
+`csrc/lane_algebra.cuh`).  One warp per scenario walks the H steps, with
+its working set (Vzz, M = Vzz A, Qzz, B^T Vzz, Quz, K, K^T Quu: about 1,100
+values) in shared memory: the lanes split the 17-wide products (a lane per
+row or column), every lane runs the small scalar parts (boxQP, Cholesky),
+and the next step's inputs arrive by `cp.async` while a step computes.
 
 Layout (time-major, batch-last), the JAX kernel's:
   ZU (H,21,B), t_w (H,1,B), goal / tra_pos (3,B), Hatt (4,4,B), att0 (1,B),

@@ -10,8 +10,8 @@ what the fusion of K2 is measured against.
 CUDA kernel: `csrc/riccati_unfused.cu`, one thread per scenario walking
 the H steps, the device helpers of K2 (`csrc/lane_algebra.cuh`).  Per step
 a lane streams about 776 values (3.1 KB in f32) from device memory with
-coalesced loads; like K2 it is bound by the latency of 50 dependent steps
-with one warp per SM.
+coalesced loads; it is bound by the latency of 50 dependent steps with one
+warp per SM.
 
 The plain version is split in two, and K2's plain version is their
 composition: `derivatives_plain` forms K3's inputs from K2's, and

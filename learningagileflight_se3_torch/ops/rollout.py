@@ -6,13 +6,12 @@ u = clip(u_ref + alpha*k + K (z - z_ref), lb, ub), adds the full stage
 cost, takes a forward-Euler step and, at the last step, adds the terminal
 cost.  With zero gains it is the open-loop rollout with cost.
 
-CUDA kernel: `csrc/rollout.cu`.  One thread per scenario walks the H
-steps with its 17-float state and cost in registers.  What bounds it on
-the card is the read of the per-step gains (68 + 25 floats per lane per
-step, ~370 bytes in f32) and, at B=2048, latency: 64 warps are too few to
-hide it on 132 SMs.  The time-major batch-last layout makes a warp's loads
-of one entry 32 neighbouring addresses (coalesced); blocks of 32 threads
-spread the batch over as many SMs as it fills.
+CUDA kernel: `csrc/rollout.cu`.  Its bound on the card is the bytes it
+moves (94 values read and 21 written per scenario and step).  The gains do
+not depend on the state, so a block of 16 scenarios, four threads each (one
+per control row, combined with warp shuffles), streams each step's gain
+tile into an 8-stage `cp.async` ring in shared memory, seven steps ahead of
+the recursion; the chain of dependent work per step is the state update.
 
 Layout (time-major, batch-last), the JAX kernel's:
   Z_ref (H,17,B) states 0..H-1, U_ref / kk (H,4,B), KK (H,4,17,B),
@@ -98,3 +97,8 @@ def rollout_forward(Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos, tra_quat,
     build.launch("laf_rollout", dtype, consts, H, B, [*tensors.values(), Zn, Un, cost], device)
     launches += 1
     return Zn, Un, cost
+
+
+def ring_bytes(dtype) -> int:
+    """The kernel's dynamic shared memory per block (its gain ring)."""
+    return build.library().lib.laf_rollout_ring_bytes(int(dtype == torch.float64))

@@ -35,6 +35,7 @@ from learningagileflight_se3_torch.config import (
 from learningagileflight_se3_torch.geometry.gate import rotate_y, translate, window_inputs
 from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3_torch.utils.device import resolve_device
 
 # sign matrix A: maps rotor thrusts to the [T, tau] convention together
 # with diag([1, -l/2, l/2, -c])
@@ -76,7 +77,8 @@ class ExternalSimController:
       gate_motion: callable step -> (gate_pts (4,3), velocity (3,)).
       w_rot: gate pitch rate (rad/s).
       origin: scenario origin subtracted from raw positions.
-      device, dtype: where and in what precision steps 2-5 run.
+      device, dtype: where and in what precision steps 2-5 run; the card by
+        default (raises where there is none), `device="cpu"` for the CPU.
     """
 
     def __init__(
@@ -93,14 +95,14 @@ class ExternalSimController:
         fixed_point_tol: float = 1e-2,
         fixed_point_accel: str = "reference",
         warm_start: bool = True,
-        device="cpu",
+        device="cuda",
         dtype=torch.float64,
     ):
         p, w, s, *_ = preset(variant)
         self.params = params or p
         self.weights = weights or w
         self.solver_cfg = solver_cfg or s
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.model2 = model2.to(device=self.device, dtype=dtype)
         self.gate_motion = gate_motion

@@ -40,6 +40,7 @@ from learningagileflight_se3_torch.policy import (
     make_analytic_gradient_batched,
     make_fd_gradient_batched,
 )
+from learningagileflight_se3_torch.utils.device import resolve_device
 
 
 class RLStepResult(NamedTuple):
@@ -113,10 +114,11 @@ def run_rl_training(seed: int, model: MLP, epochs: int = 100, batch_size: int = 
                     sampler_cfg: SamplerConfig = SamplerConfig(),
                     grad_mode: str = "fd", lr_schedule: bool = False, log_fn=print,
                     checkpoint_dir: Optional[str] = None, checkpoint_every: int = 20,
-                    resume: bool = False, device=None,
+                    resume: bool = False, device="cuda",
                     ) -> Tuple[MLP, List[float], List[float]]:
     """Stage-2 training loop: `epochs` Adam steps of one batch each, from `model`
-    (DNN1, trained in place on `device`, default the model's own).
+    (DNN1, moved to `device` and trained there in place: the card by default,
+    which raises where there is none; `device="cpu"` for the CPU).
 
     With `checkpoint_dir` the full training state (parameters, Adam moments,
     epoch) is saved every `checkpoint_every` epochs and at the end, and
@@ -130,7 +132,7 @@ def run_rl_training(seed: int, model: MLP, epochs: int = 100, batch_size: int = 
         train_state_exists,
     )
 
-    device = torch.device(device) if device is not None else next(model.parameters()).device
+    device = resolve_device(device)
     model = model.to(device)
     optimizer = torch.optim.Adam(model.parameters(), lr=lr)
     schedule = cosine_decay_schedule(lr, epochs, alpha=0.1) if lr_schedule else (lambda _: lr)

@@ -1,0 +1,152 @@
+"""Profile the PyTorch port's batched solve and deployment tick on a CUDA card.
+
+  - The batched solve at the bench.py point (B=2048, H=50, f32,
+    SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4,
+    ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)) on seeded
+    scenarios: the host time of --reps solves, synced, then one more solve
+    under torch.profiler.
+  - The 10 Hz tick at the deployed budget (PYBULLET, H=50, max_iters=30,
+    secant traversal-time solver, f32, B=1) replaying
+    artifacts/replay_contract.npz: one warm-up pass, one timed pass (per-tick
+    host time, each tick ending in its host fetch), one pass under
+    torch.profiler.
+
+Each profiled run reports its wall time, the number of device operations,
+the device's busy time and busy share (a floor: the profiler's own host
+overhead inflates the wall time), and the launches and device time of K1
+(rollout_kernel), K2 (riccati_fused_kernel) and the other kernels with the
+most device time.  Prints one line per measurement, the card's nvidia-smi
+name and power limit, then one JSON object (also written to --out).
+
+Usage: python3 scripts/profile_solve_tick.py [--reps 3] [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from profile_rl_step import profiled_step  # noqa: E402
+
+from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig, Variant  # noqa: E402
+from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem  # noqa: E402
+from learningagileflight_se3_torch.sim.external_controller import ExternalSimController  # noqa: E402
+from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver  # noqa: E402
+from learningagileflight_se3_torch.utils.weights import load_dnn2  # noqa: E402
+
+BENCH_CFG = SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4, ls_adaptive=True,
+                         ls_max_trips=4, no_progress_iters=10)
+
+
+def bench_args(seed, B):
+    """The solver's arguments for B seeded bench.py-style scenarios on the card."""
+    dev = torch.device("cuda")
+    scen = sample_scenarios(torch.Generator(device=dev).manual_seed(seed), B)
+    probs = scenario_to_problem(scen)
+    x0 = probs["x0"]
+    zeros = torch.zeros((B, 1), device=dev)
+    tra_ang = torch.cat([zeros, scen[:, 8:9] * 0.5, zeros], dim=1)
+    t = torch.clamp(torch.linalg.vector_norm(x0[:, 0:3], dim=1) / 4.0, 2.0, 4.0)
+    return (x0, torch.zeros((B, 4), device=dev), probs["goal_pos"], torch.zeros((B, 3), device=dev),
+            tra_ang, t)
+
+
+def report(what, prof):
+    print(f"{what} under torch.profiler: wall {prof['wall_s']:.4f} s, {prof['device_ops']} device "
+          f"operations, device busy {prof['device_busy_s']:.4f} s, busy share {prof['busy_share']:.4f}; " +
+          ", ".join(f"{k} {v['launches']} launches {v['device_ms']:.3f} ms" for k, v in prof["kernels"].items()),
+          flush=True)
+    for o in prof["top_other"]:
+        print(f"  {o['device_ms']:.3f} ms over {o['launches']} launches: {o['name']}", flush=True)
+
+
+def solve_part(reps):
+    B = 2048
+    solve = make_batched_mpc_solver(QuadParams(), CostWeights(), BENCH_CFG)
+    solve(*bench_args(0, B))
+    times = []
+    for i in range(reps):
+        args = bench_args(100 + i, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"solve: B={B} {times[-1]:.4f} s (host, synced), {B / times[-1]:.1f} solves/s, mean iters "
+              f"{sol.iterations.float().mean().item():.2f}, line-search trips {int(sol.ls_evals)}", flush=True)
+    args = bench_args(100, B)
+    prof = profiled_step(lambda _: solve(*args), None)
+    report("solve", prof)
+    return dict(batch=B, solve_s=times, profiled=prof)
+
+
+def tick_part():
+    z = np.load(os.path.join(REPO, "artifacts", "replay_contract.npz"))
+    moves, V = z["gate_moves"], z["gate_vel"]
+    cfg = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
+                       ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
+
+    def replay():
+        ctrl = ExternalSimController(
+            load_dnn2(), final_point=z["final_point"],
+            gate_motion=lambda i: (moves[min(i, len(moves) - 1)], V[min(i, len(moves) - 1)]),
+            w_rot=float(z["w_rot"]), origin=z["origin"], variant=Variant.PYBULLET, solver_cfg=cfg,
+            fixed_point_tol=float(z["fixed_point_tol"]), fixed_point_accel="secant",
+            device="cuda", dtype=torch.float32)
+        lat = []
+        for k in range(len(z["tick_steps"])):
+            obs = z["observations"][k]
+            t0 = time.perf_counter()
+            ctrl.compute_control(step=int(z["tick_steps"][k]), cur_pos=obs[0:3], cur_quat_xyzw=obs[3:7],
+                                 cur_vel=obs[10:13], cur_euler_rates=obs[13:16], cur_rpy=obs[7:10])
+            lat.append(time.perf_counter() - t0)
+        return np.asarray(lat) * 1e3
+
+    replay()  # warm-up pass
+    ms = replay()
+    n = len(ms)
+    print(f"tick: {n} ticks, per-tick ms {[round(float(x), 3) for x in ms]}; p50 {np.percentile(ms, 50):.3f} "
+          f"p90 {np.percentile(ms, 90):.3f}", flush=True)
+    prof = profiled_step(lambda _: replay(), None)
+    report(f"tick pass ({n} ticks)", prof)
+    return dict(ticks=n, tick_ms=ms.tolist(), p50_ms=float(np.percentile(ms, 50)),
+                p90_ms=float(np.percentile(ms, 90)), profiled=prof)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=3, help="timed solves")
+    ap.add_argument("--out", default=None, help="also write the JSON summary here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_solve_tick: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                   solve=solve_part(args.reps), tick=tick_part())
+    print(smi)
+    line = json.dumps(summary)
+    print(line)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

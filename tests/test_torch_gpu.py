@@ -54,10 +54,20 @@ def main_path():
     return main_path_inputs(50, 300, device="cuda", iters=10)
 
 
+@pytest.fixture(scope="module", params=[1, 33, 2048])
+def main_path_b(request):
+    """The same at B=1 (the tick: one warp of K2, one live scenario of K1's
+    16), B=33 (ragged: 33 is no multiple of K2's 4 warps, of K1's 16
+    scenarios or of its 16-byte copies) and B=2048 (the bench.py point)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return main_path_inputs(50, request.param, device="cuda", iters=10)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_rollout_kernel_matches_plain(cuda, main_path, dtype):
+def test_rollout_kernel_matches_plain(cuda, main_path_b, dtype):
     P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
-    args = [a.to(dtype) for a in main_path[0]]
+    args = [a.to(dtype) for a in main_path_b[0]]
     n = rollout.launches
     Zn, Un, c = rollout.rollout_forward(*args, P, W, C)
     torch.cuda.synchronize()
@@ -76,9 +86,9 @@ def test_rollout_kernel_matches_plain(cuda, main_path, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_riccati_kernel_matches_plain(cuda, main_path, dtype):
+def test_riccati_kernel_matches_plain(cuda, main_path_b, dtype):
     P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
-    args = [a.to(dtype) for a in main_path[1]]
+    args = [a.to(dtype) for a in main_path_b[1]]
     n = riccati_fused.launches
     out = riccati_fused.riccati_backward(*args, P, W, C)
     torch.cuda.synchronize()
@@ -87,6 +97,20 @@ def test_riccati_kernel_matches_plain(cuda, main_path, dtype):
     tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
             else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
     for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
+        if name == "fail":
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        else:
+            assert _rel_err(a, b) < tols[name], name
+
+
+def test_riccati_kernel_f32_matches_f64(cuda, main_path_b):
+    """K2 in f32 against K2 in f64 on the same inputs: phase 3's f32 gates,
+    and the same lanes fail."""
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
+    out64 = riccati_fused.riccati_backward(*main_path_b[1], P, W, C)
+    out32 = riccati_fused.riccati_backward(*[a.float() for a in main_path_b[1]], P, W, C)
+    tols = dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4)
+    for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out32, out64):
         if name == "fail":
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         else:

@@ -1,0 +1,254 @@
+"""The CUDA sources of the PyTorch port, checked on the CPU.
+
+There is no nvcc here, so the kernels of learningagileflight_se3_torch/csrc
+are checked in two other ways; neither replaces the card's tests
+(tests/test_torch_gpu.py), which hold the nvcc build against the plain
+versions:
+
+  - parse: libclang parses each .cu as CUDA for sm_90a, device and host side,
+    with a stub of the few runtime declarations they use, and every template
+    instance the C entry points reach is checked;
+  - emulation: g++ compiles the sources with one std::thread per CUDA thread
+    (__syncwarp / __syncthreads as barriers, __shfl_sync through memory,
+    cp.async as a copy), and the kernels, called through their C entry
+    points on CPU tensors, are held against their plain PyTorch versions in
+    f64 at batch sizes that exercise the ragged edges (1, 5, 20, 33 lanes).
+    This checks the kernels' indexing, barriers and masking, not the CUDA
+    compiler's code or the card's numerics.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
+from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
+from learningagileflight_se3_torch.ops.inputs import as_tensors, backward_inputs, main_path_inputs, rollout_inputs
+
+SOURCES = sorted(n for n in os.listdir(build.CSRC_DIR) if n.endswith(".cu"))
+
+# the runtime declarations the sources use, for both checks
+_DECLS = """
+struct uint3 { unsigned x, y, z; };
+typedef struct CUstream_st* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
+"""
+
+PARSE_STUB = """#pragma once
+typedef unsigned long size_t;
+#define __host__ __attribute__((host))
+#define __device__ __attribute__((device))
+#define __global__ __attribute__((global))
+#define __shared__ __attribute__((shared))
+#define __forceinline__ __inline__ __attribute__((always_inline))
+#define __launch_bounds__(...) __attribute__((launch_bounds(__VA_ARGS__)))
+#define __align__(n) __attribute__((aligned(n)))
+""" + _DECLS + """
+struct dim3 { unsigned x, y, z; __host__ __device__ dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+extern const __device__ uint3 threadIdx, blockIdx;
+extern const __device__ dim3 blockDim;
+cudaError_t cudaGetLastError();
+cudaError_t cudaConfigureCall(dim3, dim3, size_t = 0, cudaStream_t = 0);
+template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int);
+__device__ void __syncwarp(unsigned = 0xffffffffu);
+__device__ void __syncthreads();
+__device__ float __shfl_sync(unsigned, float, int, int = 32);
+__device__ double __shfl_sync(unsigned, double, int, int = 32);
+__device__ size_t __cvta_generic_to_shared(const void*);
+__device__ float sqrt(float); __device__ double sqrt(double);
+__device__ float fabs(float); __device__ double fabs(double);
+__device__ bool isnan(float); __device__ bool isnan(double);
+__device__ int min(int, int);
+__host__ __device__ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+__host__ __device__ inline double2 make_double2(double a, double b) { return {a, b}; }
+"""
+
+EMU_HEADER = """#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __host__
+#define __device__
+#define __global__
+#define __shared__ static
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) alignas(n)
+""" + _DECLS + """
+inline thread_local uint3 threadIdx, blockIdx, blockDim;
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
+using std::fabs; using std::isnan; using std::min; using std::sqrt;
+namespace emu {
+struct Block {  // one block's barriers and shuffle slots, shared by its threads
+  std::unique_ptr<std::barrier<>> all;
+  std::vector<std::unique_ptr<std::barrier<>>> warp;
+  double xchg[1024];
+};
+inline thread_local Block* blk;
+// blocks one after another (so a kernel's static shared memory, a function
+// static here, is its block's), each thread of a block an std::thread
+inline void launch(int grid, int block, std::function<void()> body) {
+  for (int g = 0; g < grid; ++g) {
+    Block B;
+    B.all = std::make_unique<std::barrier<>>(block);
+    for (int w = 0; w < (block + 31) / 32; ++w)
+      B.warp.push_back(std::make_unique<std::barrier<>>(std::min(32, block - 32 * w)));
+    std::vector<std::thread> ts;
+    for (int t = 0; t < block; ++t)
+      ts.emplace_back([&, t] {
+        threadIdx = {unsigned(t), 0, 0}; blockIdx = {unsigned(g), 0, 0}; blockDim = {unsigned(block), 1, 1};
+        blk = &B;
+        body();
+      });
+    for (auto& t : ts) t.join();
+  }
+}
+}  // namespace emu
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::blk->warp[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncthreads() { emu::blk->all->arrive_and_wait(); }
+template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
+  emu::blk->xchg[threadIdx.x] = (double)v;
+  __syncwarp();
+  T r = (T)emu::blk->xchg[threadIdx.x / 32 * 32 + src];
+  __syncwarp();
+  return r;
+}
+"""
+
+
+def _emulation_source(text):
+    """A .cu/.cuh text rewritten for EMU_HEADER: launches as emu::launch,
+    cp.async as a plain copy, dynamic shared memory a static buffer."""
+    text = text.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    text = re.sub(r"(\w+<[^;<>]*>)<<<([^,]+),([^,]+),[^>]*>>>\((.*?)\);",
+                  lambda m: f"emu::launch({m.group(2)}, {m.group(3)}, [&] {{ {m.group(1)}({m.group(4)}); }});",
+                  text, flags=re.S)
+    text = re.sub(r"(void cp_async\(void\* smem, const void\* gmem\) \{).*?\n\}\n",
+                  r"\1 std::memcpy(smem, gmem, BYTES); }\n", text, flags=re.S)
+    text = re.sub(r"(void cp_async_(commit|wait)\(\) \{).*?\n\}\n", r"\1}\n", text, flags=re.S)
+    return text.replace("extern __shared__ __align__(16) unsigned char k1_smem[];",
+                        "alignas(16) static unsigned char k1_smem[1 << 17];")
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_cuda_source_parses_for_sm90a(source, tmp_path):
+    cindex = pytest.importorskip("clang.cindex")
+    (tmp_path / "cuda_runtime.h").write_text(PARSE_STUB)
+    index = cindex.Index.create()
+    errors = []
+    for side in ("--cuda-device-only", "--cuda-host-only"):
+        tu = index.parse(os.path.join(build.CSRC_DIR, source), args=[
+            "-x", "cuda", side, "--cuda-gpu-arch=sm_90a", "-nocudainc", "-nocudalib", "-std=c++17",
+            f"-I{tmp_path}"])
+        errors += [f"{side} {d.location.line}: {d.spelling}" for d in tu.diagnostics if d.severity >= 3]
+    assert not errors, errors
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel library built with g++ for the CPU emulation."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    out = tmp_path_factory.mktemp("emulated_kernels")
+    (out / "emu.h").write_text(EMU_HEADER)
+    cpps = []
+    for name in os.listdir(build.CSRC_DIR):
+        text = _emulation_source(open(os.path.join(build.CSRC_DIR, name)).read())
+        target = out / (name[:-3] + ".cpp" if name.endswith(".cu") else name)
+        target.write_text(text)
+        cpps += [str(target)] if name.endswith(".cu") else []
+    so = out / "libemulated.so"
+    proc = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w", "-o", str(so),
+                           *cpps], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    for name, n_ptr in build._ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(build.KernelConsts), ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _call(lib, name, consts, H, B, tensors):
+    assert getattr(lib, name + "_f64")(ctypes.byref(consts), H, B, *[t.data_ptr() for t in tensors], None) == 0
+
+
+def _sweep_close(out, ref, tol):
+    for nm, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
+        a, b = a.double().numpy(), b.double().numpy()
+        assert (np.isnan(a) == np.isnan(b)).all(), nm
+        both = np.isfinite(a) & np.isfinite(b)
+        err = float(np.max(np.abs(a[both] - b[both]) / (np.abs(b[both]) + 1e-2), initial=0.0))
+        assert err < tol, (nm, err)
+
+
+def _k2(lib, args, P, W, C):
+    H, _, B = args[0].shape
+    out = [torch.full((H, 4, B), np.nan, dtype=torch.float64), torch.full((H, 4, 17, B), np.nan, dtype=torch.float64)]
+    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(4)]
+    _call(lib, "laf_riccati_fused", build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp), H, B, args + out)
+    return out[:4] + [out[4] > 0, out[5]]
+
+
+VARIANTS = {
+    "default": (dict(), dict()),
+    "pybullet": (dict(squared_attitude=False), dict(u_ub=2.4)),
+    "wqf_wbound": (dict(wqf=2.0), dict(w_bound_weight=3.0, w_bound=0.3)),
+}
+
+
+@pytest.mark.parametrize("B", [1, 5, 20, 33])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_emulated_kernels_match_plain(emulated, variant, B):
+    """K1 and K2 (f64, random inputs, H=6) against their plain versions."""
+    wkw, skw = VARIANTS[variant]
+    H = 6
+    P, W, C = QuadParams(), CostWeights(**wkw), SolverConfig(horizon=H, **skw)
+    a2 = as_tensors(backward_inputs(H, B, seed=B))
+    _sweep_close(_k2(emulated, a2, P, W, C), riccati_fused.riccati_backward_plain(*a2, P, W, C), 1e-9)
+    a1 = as_tensors(rollout_inputs(H, B, seed=B))
+    out = [torch.full((H, 17, B), np.nan, dtype=torch.float64), torch.full((H, 4, B), np.nan, dtype=torch.float64),
+           torch.full((B,), np.nan, dtype=torch.float64)]
+    _call(emulated, "laf_rollout", build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp), H, B, a1 + out)
+    for a, b in zip(out, rollout.rollout_forward_plain(*a1, P, W, C)):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+
+
+def test_emulated_kernels_on_solver_trajectories(emulated):
+    """K1, K2 and K3 at the full horizon (H=50, B=20, f64) on the solver's
+    own trajectories (ops/inputs.py main_path_inputs)."""
+    H, B = 50, 20
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
+    k1, k2 = main_path_inputs(H, B, iters=4)
+    _sweep_close(_k2(emulated, k2, P, W, C), riccati_fused.riccati_backward_plain(*k2, P, W, C), 1e-9)
+    derivs = riccati_unfused.derivatives_plain(*k2, P, W, C)
+    out = [torch.full((H, 4, B), np.nan, dtype=torch.float64), torch.full((H, 4, 17, B), np.nan, dtype=torch.float64)]
+    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(4)]
+    _call(emulated, "laf_riccati_unfused", build.kernel_consts(P, CostWeights(), C, 6, True), H, B,
+          list(derivs) + out)
+    ref = riccati_unfused.riccati_unfused_plain(*derivs, P, C.dt, C.u_lb, C.u_ub, 6, True)
+    _sweep_close(out[:4] + [out[4] > 0, out[5]], ref, 1e-9)
+    out = [torch.full((H, 17, B), np.nan, dtype=torch.float64), torch.full((H, 4, B), np.nan, dtype=torch.float64),
+           torch.full((B,), np.nan, dtype=torch.float64)]
+    _call(emulated, "laf_rollout", build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp), H, B, k1 + out)
+    ref = rollout.rollout_forward_plain(*k1, P, W, C)
+    sane = torch.isfinite(ref[2]) & (ref[2].abs() < 1e12)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a[..., sane], b[..., sane], rtol=1e-9, atol=1e-12)

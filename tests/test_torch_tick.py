@@ -180,7 +180,7 @@ def test_replay_contract_through_the_port():
         solver_cfg=SolverConfig(horizon=int(z["solver_horizon"]),
                                 max_iters=int(z["solver_max_iters"]),
                                 u_ub=float(z["solver_u_ub"])),
-        fixed_point_tol=float(z["fixed_point_tol"]),
+        fixed_point_tol=float(z["fixed_point_tol"]), device="cpu",
     )
     plain = (rollout.plain_calls, riccati_fused.plain_calls)
     for k in range(len(z["tick_steps"])):
@@ -192,3 +192,24 @@ def test_replay_contract_through_the_port():
                                    err_msg=f"control wrench drifted at tick {k}")
         assert abs(float(t_pred) - z["tra_times"][k]) < 1e-6, f"traversal time drifted at tick {k}"
     assert rollout.plain_calls > plain[0] and riccati_fused.plain_calls > plain[1]
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """ExternalSimController and run_rl_training run on the card unless given
+    device="cpu": without a card their default raises before any work, and
+    nothing runs on the CPU in its place."""
+    from learningagileflight_se3_torch.train.rl import run_rl_training
+    from learningagileflight_se3_torch.utils.weights import load_dnn1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    plain = (rollout.plain_calls, riccati_fused.plain_calls)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExternalSimController(load_dnn2(), final_point=np.zeros(3),
+                              gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)), w_rot=0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_rl_training(0, load_dnn1(), epochs=1, batch_size=2, log_fn=lambda *a: None)
+    assert (rollout.plain_calls, riccati_fused.plain_calls) == plain
+    ctrl = ExternalSimController(load_dnn2(), final_point=np.zeros(3),
+                                 gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)),
+                                 w_rot=0.0, device="cpu")
+    assert ctrl.device == torch.device("cpu")

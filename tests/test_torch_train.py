@@ -412,7 +412,7 @@ def test_resume_equals_uninterrupted(tmp_path):
             raise Cut
 
     kw = dict(epochs=4, batch_size=3, lr=1e-3, solver_cfg=tcfg.SolverConfig(**TINY),
-              grad_mode="analytic", lr_schedule=True)
+              grad_mode="analytic", lr_schedule=True, device="cpu")
     load = lambda: tweights.load_dnn1(tweights.NN_PRE_DNN1)
     m_full, r_full, v_full = run_rl_training(7, load(), log_fn=lambda *a: None, **kw)
     ck = str(tmp_path / "rl_ck")
