@@ -9,7 +9,8 @@ if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
   2 build    nvcc build time, each kernel's ptxas registers / shared memory
-             / stack, and K1's gain ring (dynamic shared memory)
+             / stack, K1's gain ring and K3's ring and working set (dynamic
+             shared memory)
   3 kernels  K1 and K2 against their plain versions at H=50 and B=2048 (the
              bench.py point), 256 (the analytic RL step) and 1 (the tick), f64
              and f32; each f32 time (CUDA events, the card's time alone)
@@ -21,8 +22,9 @@ Phases, each printing its numbers on lines of its own:
   6 tick     the replay contract through ExternalSimController on CUDA (f64
              and f32), then the deployed budget's per-tick latency
   7 K3       the unfused backward sweep against its plain version (f64, f32)
-             and against K2 on the same trajectory (f64), with the times of
-             K3, its bound, its plain version and K2 (f32, H=50, B=2048)
+             and against K2 on the same trajectory (f64) at phase 3's shapes
+             and inputs (H=50, B=2048, 256, 1), with the times of K3 (the
+             card's alone), its bound, its plain version and K2 (f32)
   8 train    stage-2 RL of DNN1 at the --full settings (B=256, H=50, f32):
              nn_pre / nn_deep rewards, K1 and K2 against their plain
              versions on the inputs of the analytic (B=256) and the fd
@@ -167,6 +169,7 @@ class Smoke:
         self.smi = "nvidia-smi not read"
         self.kernels = {}
         self.path_launches = {}  # path -> read_launches() over that path's run
+        self.k2_inputs = {}      # B -> phase 3's K2 inputs (f64)
 
     def check(self, ok, what):
         if not ok:
@@ -194,7 +197,7 @@ class Smoke:
 
     # ------------------------------------------------------------- 2 build
     def build(self):
-        from learningagileflight_se3_torch.ops import build, rollout
+        from learningagileflight_se3_torch.ops import build, riccati_unfused, rollout
 
         t0 = time.perf_counter()
         lib = build.library()
@@ -205,6 +208,8 @@ class Smoke:
                 log(f"ptxas: {line.strip()}")
         log(f"K1 gain ring (dynamic shared memory per block): f32 {rollout.ring_bytes(torch.float32)} B, "
             f"f64 {rollout.ring_bytes(torch.float64)} B")
+        log(f"K3 ring and working set (dynamic shared memory per block): f32 "
+            f"{riccati_unfused.smem_bytes(torch.float32)} B, f64 {riccati_unfused.smem_bytes(torch.float64)} B")
 
     # ----------------------------------------------------------- 3 kernels
     def kernels_vs_plain(self):
@@ -218,8 +223,7 @@ class Smoke:
         for B in (2048, 256, 1):
             t0 = time.perf_counter()
             k1_64, k2_64 = main_path_inputs(H, B, device="cuda", iters=INPUT_ITERS)
-            if B == 2048:
-                self.k2_inputs = k2_64  # phase 7 holds K3 against K2 on them
+            self.k2_inputs[B] = k2_64  # phase 7 holds K3 against K2 on them
             torch.cuda.synchronize()
             log(f"inputs: H={H}, B={B}: bench.py scenarios after {INPUT_ITERS} DDP iterations (f64), "
                 f"{time.perf_counter() - t0:.2f} s")
@@ -462,33 +466,38 @@ class Smoke:
         from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
         from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused
 
-        H, B = 50, 2048
+        H = 50
         P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
         kw = dict(dt=C.dt, lb=C.u_lb, ub=C.u_ub)
         riccati_unfused.launches = 0
-        k2_64 = self.k2_inputs
-        derivs_64 = riccati_unfused.derivatives_plain(*k2_64, P, W, C)
-        for dtype in (torch.float64, torch.float32):
-            name = "f64" if dtype == torch.float64 else "f32"
-            args = [a.to(dtype) for a in derivs_64]
-            out = riccati_unfused.riccati_backward_unfused(*args, P, **kw)
-            torch.cuda.synchronize()
-            ref = riccati_unfused.riccati_unfused_plain(*args, P, **kw)
-            errs = self.check_sweep(f"K3 {name} vs plain", out, ref, dtype)
-            if dtype == torch.float64:
-                self.check_sweep("K3 f64 vs K2", out, riccati_fused.riccati_backward(*k2_64, P, W, C),
-                                 dtype)
-                continue
-            k2_args = [a.to(dtype) for a in k2_64]
-            k_ms = median_ms(lambda: riccati_unfused.riccati_backward_unfused(*args, P, **kw), card_only=True)
-            p_ms = median_ms(lambda: riccati_unfused.riccati_unfused_plain(*args, P, **kw), n=5)
-            f_ms = median_ms(lambda: riccati_fused.riccati_backward(*k2_args, P, W, C), card_only=True)
-            b_ms, b_by = bound(args, out, K3_FLOPS * B * H)
-            log(f"K3 f32 time: kernel {k_ms:.4f} ms (the card's time, median of {N_TIMED}), bound "
-                f"{b_ms:.4f} ms ({b_by}), plain {p_ms:.4f} ms (median of 5), K2 on the same trajectory "
-                f"{f_ms:.4f} ms; H={H}, B={B} [{self.smi}]")
-            self.kernels["K3"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=None)
+        for B in (2048, 256, 1):  # phase 3's shapes and inputs
+            k2_64 = self.k2_inputs[B]
+            derivs_64 = riccati_unfused.derivatives_plain(*k2_64, P, W, C)
+            for dtype in (torch.float64, torch.float32):
+                name = f"{'f64' if dtype == torch.float64 else 'f32'}, B={B}"
+                args = [a.to(dtype) for a in derivs_64]
+                out = riccati_unfused.riccati_backward_unfused(*args, P, **kw)
+                torch.cuda.synchronize()
+                ref = riccati_unfused.riccati_unfused_plain(*args, P, **kw)
+                errs = self.check_sweep(f"K3 {name} vs plain", out, ref, dtype)
+                if dtype == torch.float64:
+                    self.check_sweep(f"K3 {name} vs K2", out, riccati_fused.riccati_backward(*k2_64, P, W, C),
+                                     dtype)
+                    continue
+                k2_args = [a.to(dtype) for a in k2_64]
+                k_ms = median_ms(lambda: riccati_unfused.riccati_backward_unfused(*args, P, **kw), card_only=True)
+                p_ms = median_ms(lambda: riccati_unfused.riccati_unfused_plain(*args, P, **kw), n=5)
+                f_ms = median_ms(lambda: riccati_fused.riccati_backward(*k2_args, P, W, C), card_only=True)
+                # of ZU the sweep reads only the rows of its DDP term, the
+                # quaternion (6..9) and the controls (17..20)
+                read = args[:8] + [args[8][:, 6:10], args[8][:, 17:21]] + args[9:]
+                b_ms, b_by = bound(read, out, K3_FLOPS * B * H)
+                log(f"K3 f32 time, H={H}, B={B}: kernel {k_ms:.4f} ms (the card's time, median of {N_TIMED}); "
+                    f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of it reached; plain {p_ms:.4f} ms "
+                    f"(median of 5); K2 on the same trajectory {f_ms:.4f} ms [{self.smi}]")
+                if B == 2048:
+                    self.kernels["K3"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                              bound_by=b_by, library_ms=None)
         self.k3_launches = riccati_unfused.launches
 
     # ------------------------------------------------------------- 8 train

@@ -8,8 +8,8 @@
 // _masked4, _boxqp_lanes, _h2_lanes) written for one thread.  Their plain
 // PyTorch versions are solver/chol4.py, solver/boxqp.py and
 // solver/analytic.py explicit_h2.  Besides: the asynchronous copies
-// (cp.async) and the register-array select that the warp-cooperative
-// kernels (K1, K2) use.
+// (cp.async) and the register-array select that the cooperative kernels
+// (K1, K2, K3) use.
 //
 // NaN semantics follow jnp.maximum / jnp.clip, which propagate a NaN;
 // CUDA's fmaxf / fminf drop it, so they are not used anywhere here.
@@ -23,10 +23,6 @@ constexpr int NX = 13;
 constexpr int NU = 4;
 constexpr int NZ = NX + NU;
 constexpr int NZU = NZ + NU;
-// K3's block, one thread per scenario: one warp per block spreads a
-// 2048-scenario batch over 64 SMs instead of crowding 16 with 128-thread
-// blocks.
-constexpr int BLOCK = 32;
 
 // v[i] of a register array for a runtime i, as a chain of selects: indexing
 // the array itself by a runtime value would move it to local memory.

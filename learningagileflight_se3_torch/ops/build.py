@@ -134,8 +134,9 @@ def library() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(KernelConsts), _i, _i] + [_p] * n_ptr + [_p]
         fn.restype = _i
-    lib.laf_rollout_ring_bytes.argtypes = [_i]
-    lib.laf_rollout_ring_bytes.restype = _i
+    for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes"):
+        getattr(lib, name).argtypes = [_i]
+        getattr(lib, name).restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)
 
 

@@ -74,6 +74,26 @@ def backward_inputs(H: int, B: int, seed: int = 0, weights: CostWeights = CostWe
     return [ZU, t_w, goal, tp, Hatt, att0, phi_z.T.numpy(), phi_zz.permute(1, 2, 0).numpy(), reg]
 
 
+def with_failing_lanes(derivs, lanes, lb: float, ub: float):
+    """K3's inputs (derivatives_plain's list) changed so that `lanes` fail
+    the pivot test at the sweep's first step (k = H-1), with finite gains.
+    There B = 0 and lu = 0, so Qu = 0 and the boxQP leaves every control free
+    at 0 (U halfway between the bounds); phi_z = 0, so the DDP term vanishes;
+    luu = diag(2, 3, 1.5, 1e-14), whose last pivot is under the test's
+    threshold in f64 (1e-12) and f32 (1e-7); luz's row 3 = 0, so the gains
+    do not see that pivot.  The other steps and lanes are unchanged."""
+    A, Bm, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg = [x.clone() for x in derivs]
+    lanes = list(lanes)
+    Bm[-1, :, :, lanes] = 0.0
+    lu[-1, :, lanes] = 0.0
+    diag = torch.tensor([2.0, 3.0, 1.5, 1e-14], dtype=luu.dtype, device=luu.device)
+    luu[-1, :, :, lanes] = torch.diag(diag)[..., None]
+    luz[-1, 3, :, lanes] = 0.0
+    U[-1, :, lanes] = 0.5 * (lb + ub)
+    phi_z[:, lanes] = 0.0
+    return [A, Bm, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg]
+
+
 def as_tensors(arrays, dtype=torch.float64, device="cpu"):
     """Contiguous tensors of the given dtype on `device`."""
     return [torch.tensor(np.ascontiguousarray(a, np.float64), dtype=dtype, device=device)

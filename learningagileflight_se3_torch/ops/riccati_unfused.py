@@ -7,11 +7,13 @@ the cost quadratics come in from device memory instead of being formed
 from the trajectory.  It is on no solver path (the solver runs K2); it is
 what the fusion of K2 is measured against.
 
-CUDA kernel: `csrc/riccati_unfused.cu`, one thread per scenario walking
-the H steps, the device helpers of K2 (`csrc/lane_algebra.cuh`).  Per step
-a lane streams about 776 values (3.1 KB in f32) from device memory with
-coalesced loads; it is bound by the latency of 50 dependent steps with one
-warp per SM.
+CUDA kernel: `csrc/riccati_unfused.cu`.  A block takes 8 consecutive
+scenarios and streams each step's derivative tile (763 values a scenario,
+3.1 KB in f32: of ZU only the DDP term's rows) through a two-stage
+`cp.async` ring in shared memory, one step ahead of the recursion; 17
+workers a scenario split the dense 17-wide products, and one lane per
+scenario runs the boxQP and Cholesky chain with K2's device helpers
+(`csrc/lane_algebra.cuh`).
 
 The plain version is split in two, and K2's plain version is their
 composition: `derivatives_plain` forms K3's inputs from K2's, and
@@ -126,6 +128,11 @@ def riccati_unfused_plain(A, B, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg
         dV2 = dV2 + 0.5 * torch.sum(kfb * Quu_kf, dim=-1)
         kk[k], KK[k] = kf, K
     return torch.stack(kk), torch.stack(KK), dV1, dV2, fail, pg
+
+
+def smem_bytes(dtype) -> int:
+    """The kernel's dynamic shared memory per block (its ring and working set)."""
+    return build.library().lib.laf_riccati_unfused_smem_bytes(int(dtype == torch.float64))
 
 
 def riccati_backward_unfused(A, B, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg,

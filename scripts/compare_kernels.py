@@ -1,15 +1,17 @@
-"""Time the PyTorch port's K1 and K2 against another checkout's, on one card.
+"""Time the PyTorch port's K1, K2 and K3 against another checkout's, on one card.
 
 Builds the CUDA kernels of this tree and of another checkout of the
 repository (`--other DIR`, for example the parent commit unpacked with `git
 archive`), each with its own sources and nvcc flags, and times both on the
 same inputs: the solver's trajectories after 10 DDP iterations (as
-chip_smoke.py phase 3), f32, H=50, B = 2048, 256 and 1.  Each launch goes
-straight to the C entry point with preallocated outputs; the card spins for
-about a millisecond before the start event, so the events time the card's
-work alone.  The two builds are timed in turns (other, this, this, other),
-20 launches each, and their outputs compared (KK relative error, fail
-pattern).  Prints one JSON object, also written to `--out`.
+chip_smoke.py phase 3), f32, H=50, B = 2048, 256 and 1; K3 on the
+derivatives that ops/riccati_unfused.py derivatives_plain forms from K2's
+inputs.  Each launch goes straight to the C entry point with preallocated
+outputs; the card spins for about a millisecond before the start event, so
+the events time the card's work alone.  The two builds are timed in turns
+(other, this, this, other), 20 launches each, and the backward sweeps'
+outputs compared (K2's and K3's KK relative error, fail pattern).  Prints
+one JSON line per shape and one JSON object, also written to `--out`.
 
 Usage: python3 scripts/compare_kernels.py --other DIR [--out FILE]
 """
@@ -33,6 +35,7 @@ import torch  # noqa: E402
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig  # noqa: E402
 from learningagileflight_se3_torch.ops import build  # noqa: E402
 from learningagileflight_se3_torch.ops.inputs import main_path_inputs  # noqa: E402
+from learningagileflight_se3_torch.ops.riccati_unfused import derivatives_plain  # noqa: E402
 
 H, N = 50, 20
 
@@ -79,31 +82,36 @@ def main():
         k1, k2 = main_path_inputs(H, B, device="cuda", iters=10)
         a1 = [x.float() for x in k1]
         a2 = [x.float() for x in k2]
+        a3 = [x.float() for x in derivatives_plain(*k2, P, W, C)]
         row = dict(B=B)
         outs = {}
         for name, mod in builds.items():
             lib, consts = mod.library().lib, mod.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp)
             kw = dict(device="cuda")
-            o1 = [torch.empty((H, 17, B), **kw), torch.empty((H, 4, B), **kw), torch.empty((B,), **kw)]
-            o2 = [torch.empty((H, 4, B), **kw), torch.empty((H, 4, 17, B), **kw)] + [
+            sweep = lambda: [torch.empty((H, 4, B), **kw), torch.empty((H, 4, 17, B), **kw)] + [
                 torch.empty((B,), **kw) for _ in range(4)]
-            p1 = [t.data_ptr() for t in a1 + o1]
-            p2 = [t.data_ptr() for t in a2 + o2]
-            outs[name] = (o1, o2,
-                          lambda lib=lib, c=consts, p=p1: lib.laf_rollout_f32(ctypes.byref(c), H, B, *p, stream),
-                          lambda lib=lib, c=consts, p=p2: lib.laf_riccati_fused_f32(ctypes.byref(c), H, B, *p,
-                                                                                    stream))
+            o1, o2, o3 = [torch.empty((H, 17, B), **kw), torch.empty((H, 4, B), **kw),
+                          torch.empty((B,), **kw)], sweep(), sweep()
+            p1, p2, p3 = ([t.data_ptr() for t in a + o] for a, o in ((a1, o1), (a2, o2), (a3, o3)))
+            outs[name] = ({"K2": o2, "K3": o3},
+                          {"K1": lambda lib=lib, c=consts, p=p1: lib.laf_rollout_f32(ctypes.byref(c), H, B, *p,
+                                                                                    stream),
+                           "K2": lambda lib=lib, c=consts, p=p2: lib.laf_riccati_fused_f32(ctypes.byref(c), H, B,
+                                                                                          *p, stream),
+                           "K3": lambda lib=lib, c=consts, p=p3: lib.laf_riccati_unfused_f32(ctypes.byref(c), H,
+                                                                                            B, *p, stream)})
         for name in ("other", "this", "this", "other"):
-            _, _, k1_fn, k2_fn = outs[name]
-            row.setdefault(f"K1_ms_{name}", []).append(card_ms(k1_fn))
-            row.setdefault(f"K2_ms_{name}", []).append(card_ms(k2_fn))
+            for k, fn in outs[name][1].items():
+                row.setdefault(f"{k}_ms_{name}", []).append(card_ms(fn))
         torch.cuda.synchronize()
-        (_, o2a, *_), (_, o2b, *_) = outs["other"], outs["this"]
-        KK_a, KK_b = o2a[1].double(), o2b[1].double()
-        both = torch.isfinite(KK_a) & torch.isfinite(KK_b)
-        row["K2_KK_rel_err_this_vs_other"] = float(
-            ((KK_b - KK_a).abs() / (KK_a.abs() + 1e-2))[both].max()) if bool(both.any()) else 0.0
-        row["K2_fail_equal"] = bool(((o2a[4] > 0) == (o2b[4] > 0)).all())
+        for k in ("K2", "K3"):
+            oa, ob = outs["other"][0][k], outs["this"][0][k]
+            KK_a, KK_b = oa[1].double(), ob[1].double()
+            both = torch.isfinite(KK_a) & torch.isfinite(KK_b)
+            row[f"{k}_KK_rel_err_this_vs_other"] = float(
+                ((KK_b - KK_a).abs() / (KK_a.abs() + 1e-2))[both].max()) if bool(both.any()) else 0.0
+            row[f"{k}_fail_equal"] = bool(((oa[4] > 0) == (ob[4] > 0)).all())
+            row[f"{k}_fail_lanes_this"] = int((ob[4] > 0).sum())
         result["shapes"].append(row)
         print(json.dumps(row), flush=True)
     line = json.dumps(result)

@@ -15,7 +15,7 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, RewardConfig, SolverConfig
 from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
-from learningagileflight_se3_torch.ops.inputs import as_tensors, main_path_inputs
+from learningagileflight_se3_torch.ops.inputs import as_tensors, main_path_inputs, with_failing_lanes
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 
 pytestmark = pytest.mark.gpu
@@ -54,13 +54,16 @@ def main_path():
     return main_path_inputs(50, 300, device="cuda", iters=10)
 
 
-@pytest.fixture(scope="module", params=[1, 33, 2048])
+@pytest.fixture(scope="module", params=[1, 33, 300, 2048])
 def main_path_b(request):
     """The same at B=1 (the tick: one warp of K2, one live scenario of K1's
-    16), B=33 (ragged: 33 is no multiple of K2's 4 warps, of K1's 16
-    scenarios or of its 16-byte copies) and B=2048 (the bench.py point)."""
+    16 and K3's 8), B=33 (ragged: 33 is no multiple of K2's 4 warps, of K1's
+    16 or K3's 8 scenarios a block or of their 16-byte copies), B=300 (the
+    main_path fixture's) and B=2048 (the bench.py point)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    if request.param == 300:
+        return request.getfixturevalue("main_path")
     return main_path_inputs(50, request.param, device="cuda", iters=10)
 
 
@@ -163,19 +166,20 @@ def test_kernel_solver_matches_plain_solver(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_unfused_kernel_matches_plain_and_fused(cuda, main_path, dtype):
+def test_unfused_kernel_matches_plain_and_fused(cuda, main_path_b, dtype):
     """K3 against its plain version (K2's gates) and, in f64, against K2 on
     the same trajectory."""
     P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
     kw = dict(dt=C.dt, lb=C.u_lb, ub=C.u_ub)
-    derivs = [a.to(dtype) for a in riccati_unfused.derivatives_plain(*main_path[1], P, W, C)]
+    k2 = main_path_b[1]
+    derivs = [a.to(dtype) for a in riccati_unfused.derivatives_plain(*k2, P, W, C)]
     n = riccati_unfused.launches
     out = riccati_unfused.riccati_backward_unfused(*derivs, P, **kw)
     torch.cuda.synchronize()
     assert riccati_unfused.launches == n + 1
     refs = [riccati_unfused.riccati_unfused_plain(*derivs, P, **kw)]
     if dtype == torch.float64:
-        refs.append(riccati_fused.riccati_backward(*main_path[1], P, W, C))
+        refs.append(riccati_fused.riccati_backward(*k2, P, W, C))
     tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
             else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
     for ref in refs:
@@ -184,6 +188,45 @@ def test_unfused_kernel_matches_plain_and_fused(cuda, main_path, dtype):
                 torch.testing.assert_close(a, b, rtol=0, atol=0)
             else:
                 assert _rel_err(a, b) < tols[name], name
+
+
+def test_unfused_kernel_f32_matches_f64(cuda, main_path_b):
+    """K3 in f32 against K3 in f64 on the same inputs: phase 3's f32 gates,
+    and the same lanes fail."""
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
+    kw = dict(dt=C.dt, lb=C.u_lb, ub=C.u_ub)
+    derivs = riccati_unfused.derivatives_plain(*main_path_b[1], P, W, C)
+    out64 = riccati_unfused.riccati_backward_unfused(*derivs, P, **kw)
+    out32 = riccati_unfused.riccati_backward_unfused(*[a.float() for a in derivs], P, **kw)
+    tols = dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4)
+    for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out32, out64):
+        if name == "fail":
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        else:
+            assert _rel_err(a, b) < tols[name], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_unfused_kernel_fail_pattern(cuda, main_path_b, dtype):
+    """K3 where the first, a middle and the last lane fail the pivot test
+    (ops/inputs.py with_failing_lanes) against its plain version: the same
+    lanes fail, and the other outputs stay within K2's gates."""
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
+    kw = dict(dt=C.dt, lb=C.u_lb, ub=C.u_ub)
+    Bt = main_path_b[1][0].shape[-1]
+    lanes = sorted({0, Bt // 2, Bt - 1})
+    derivs = riccati_unfused.derivatives_plain(*main_path_b[1], P, W, C)
+    derivs = [a.to(dtype) for a in with_failing_lanes(derivs, lanes, C.u_lb, C.u_ub)]
+    out = riccati_unfused.riccati_backward_unfused(*derivs, P, **kw)
+    ref = riccati_unfused.riccati_unfused_plain(*derivs, P, **kw)
+    assert bool(ref[4][lanes].all())
+    tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
+            else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
+    for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
+        if name == "fail":
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        else:
+            assert _rel_err(a, b) < tols[name], name
 
 
 @pytest.mark.parametrize("signal", ["analytic", "fd"])

@@ -10,7 +10,9 @@ versions:
     instance the C entry points reach is checked;
   - emulation: g++ compiles the sources with one std::thread per CUDA thread
     (__syncwarp / __syncthreads as barriers, __shfl_sync through memory,
-    cp.async as a copy), and the kernels, called through their C entry
+    cp.async as a copy that lands only at the cp.async.wait_group that
+    retires its group, dynamic shared memory filled with NaN before each
+    block), and the kernels, called through their C entry
     points on CPU tensors, are held against their plain PyTorch versions in
     f64 at batch sizes that exercise the ragged edges (1, 5, 20, 33 lanes).
     This checks the kernels' indexing, barriers and masking, not the CUDA
@@ -29,7 +31,9 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
-from learningagileflight_se3_torch.ops.inputs import as_tensors, backward_inputs, main_path_inputs, rollout_inputs
+from learningagileflight_se3_torch.ops.inputs import (
+    as_tensors, backward_inputs, main_path_inputs, rollout_inputs, with_failing_lanes,
+)
 
 SOURCES = sorted(n for n in os.listdir(build.CSRC_DIR) if n.endswith(".cu"))
 
@@ -37,7 +41,7 @@ SOURCES = sorted(n for n in os.listdir(build.CSRC_DIR) if n.endswith(".cu"))
 _DECLS = """
 struct uint3 { unsigned x, y, z; };
 typedef struct CUstream_st* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorLaunchFailure = 719 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
@@ -74,9 +78,11 @@ __host__ __device__ inline double2 make_double2(double a, double b) { return {a,
 
 EMU_HEADER = """#pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstring>
+#include <deque>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -90,7 +96,6 @@ EMU_HEADER = """#pragma once
 #define __align__(n) alignas(n)
 """ + _DECLS + """
 inline thread_local uint3 threadIdx, blockIdx, blockDim;
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
@@ -102,6 +107,23 @@ struct Block {  // one block's barriers and shuffle slots, shared by its threads
   double xchg[1024];
 };
 inline thread_local Block* blk;
+// Dynamic shared memory, every kernel's: filled with NaN bytes before each
+// block, so that a read of a slot no copy has filled is caught.
+alignas(128) inline unsigned char dyn_smem[1 << 18];
+// cp.async: a thread's copies are queued in groups and land when a
+// cp.async.wait_group retires their group, not before.
+struct Copy { void* dst; const void* src; int bytes; };
+inline thread_local std::vector<Copy> open_group;
+inline thread_local std::deque<std::vector<Copy>> groups;
+inline std::atomic<bool> copies_left{false};  // a block ended with copies in flight
+inline void cp_async(void* dst, const void* src, int bytes) { open_group.push_back({dst, src, bytes}); }
+inline void commit() { groups.push_back(std::move(open_group)); open_group.clear(); }
+inline void wait(int n) {
+  while ((int)groups.size() > n) {
+    for (const Copy& c : groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+    groups.pop_front();
+  }
+}
 // blocks one after another (so a kernel's static shared memory, a function
 // static here, is its block's), each thread of a block an std::thread
 inline void launch(int grid, int block, std::function<void()> body) {
@@ -110,17 +132,22 @@ inline void launch(int grid, int block, std::function<void()> body) {
     B.all = std::make_unique<std::barrier<>>(block);
     for (int w = 0; w < (block + 31) / 32; ++w)
       B.warp.push_back(std::make_unique<std::barrier<>>(std::min(32, block - 32 * w)));
+    std::memset(dyn_smem, 0xff, sizeof dyn_smem);
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
         threadIdx = {unsigned(t), 0, 0}; blockIdx = {unsigned(g), 0, 0}; blockDim = {unsigned(block), 1, 1};
         blk = &B;
         body();
+        bool left = !open_group.empty();
+        for (const auto& grp : groups) left = left || !grp.empty();
+        if (left) copies_left = true;
       });
     for (auto& t : ts) t.join();
   }
 }
 }  // namespace emu
+inline cudaError_t cudaGetLastError() { return emu::copies_left.exchange(false) ? cudaErrorLaunchFailure : cudaSuccess; }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::blk->warp[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __syncthreads() { emu::blk->all->arrive_and_wait(); }
 template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
@@ -135,16 +162,19 @@ template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
 
 def _emulation_source(text):
     """A .cu/.cuh text rewritten for EMU_HEADER: launches as emu::launch,
-    cp.async as a plain copy, dynamic shared memory a static buffer."""
+    cp.async as a copy deferred to the wait that retires its group, any
+    kernel's dynamic shared memory the emulation's buffer."""
     text = text.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     text = re.sub(r"(\w+<[^;<>]*>)<<<([^,]+),([^,]+),[^>]*>>>\((.*?)\);",
                   lambda m: f"emu::launch({m.group(2)}, {m.group(3)}, [&] {{ {m.group(1)}({m.group(4)}); }});",
                   text, flags=re.S)
     text = re.sub(r"(void cp_async\(void\* smem, const void\* gmem\) \{).*?\n\}\n",
-                  r"\1 std::memcpy(smem, gmem, BYTES); }\n", text, flags=re.S)
-    text = re.sub(r"(void cp_async_(commit|wait)\(\) \{).*?\n\}\n", r"\1}\n", text, flags=re.S)
-    return text.replace("extern __shared__ __align__(16) unsigned char k1_smem[];",
-                        "alignas(16) static unsigned char k1_smem[1 << 17];")
+                  r"\1 emu::cp_async(smem, gmem, BYTES); }\n", text, flags=re.S)
+    text = re.sub(r"(void cp_async_(commit|wait)\(\) \{).*?\n\}\n",
+                  lambda m: m.group(1) + (" emu::commit(); }\n" if m.group(2) == "commit" else " emu::wait(N); }\n"),
+                  text, flags=re.S)
+    return re.sub(r"extern __shared__ __align__\(\d+\) unsigned char (\w+)\[\];",
+                  r"unsigned char* \1 = emu::dyn_smem;", text)
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -231,6 +261,46 @@ def test_emulated_kernels_match_plain(emulated, variant, B):
         torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
 
 
+def _k3(lib, derivs, P, C, use_ddp):
+    H, B = derivs[0].shape[0], derivs[0].shape[-1]
+    out = [torch.full((H, 4, B), np.nan, dtype=torch.float64), torch.full((H, 4, 17, B), np.nan, dtype=torch.float64)]
+    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(4)]
+    _call(lib, "laf_riccati_unfused", build.kernel_consts(P, CostWeights(), C, C.boxqp_iters, use_ddp), H, B,
+          list(derivs) + out)
+    return out[:4] + [out[4] > 0, out[5]]
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("B", [1, 5, 20, 33])
+def test_emulated_unfused_kernel_matches_plain(emulated, B, use_ddp):
+    """K3 (f64, random inputs through derivatives_plain, H=6) against its
+    plain version: one block of 8 scenarios or several, ragged, with the
+    16-byte copies (B=20) and the one-value copies (B=1, 5, 33)."""
+    H = 6
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
+    derivs = riccati_unfused.derivatives_plain(*as_tensors(backward_inputs(H, B, seed=B)), P, W, C)
+    ref = riccati_unfused.riccati_unfused_plain(*derivs, P, C.dt, C.u_lb, C.u_ub, C.boxqp_iters, use_ddp)
+    _sweep_close(_k3(emulated, derivs, P, C, use_ddp), ref, 1e-9)
+
+
+@pytest.mark.parametrize("B", [5, 33])
+def test_emulated_unfused_kernel_fail_pattern(emulated, B):
+    """K3 where some lanes fail the pivot test (ops/inputs.py
+    with_failing_lanes): the first and last scenario of the batch and one
+    between, so that the scalar lane's factor crosses shared memory to the
+    column workers of a failing scenario beside passing ones."""
+    H = 6
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
+    lanes = sorted({0, B // 2, B - 1})
+    derivs = riccati_unfused.derivatives_plain(*as_tensors(backward_inputs(H, B, seed=B)), P, W, C)
+    derivs = with_failing_lanes(derivs, lanes, C.u_lb, C.u_ub)
+    ref = riccati_unfused.riccati_unfused_plain(*derivs, P, C.dt, C.u_lb, C.u_ub, C.boxqp_iters, True)
+    assert bool(ref[4][lanes].all()) and not bool(ref[4].all())
+    out = _k3(emulated, derivs, P, C, True)
+    assert torch.equal(out[4], ref[4])
+    _sweep_close(out, ref, 1e-9)
+
+
 def test_emulated_kernels_on_solver_trajectories(emulated):
     """K1, K2 and K3 at the full horizon (H=50, B=20, f64) on the solver's
     own trajectories (ops/inputs.py main_path_inputs)."""
@@ -239,12 +309,8 @@ def test_emulated_kernels_on_solver_trajectories(emulated):
     k1, k2 = main_path_inputs(H, B, iters=4)
     _sweep_close(_k2(emulated, k2, P, W, C), riccati_fused.riccati_backward_plain(*k2, P, W, C), 1e-9)
     derivs = riccati_unfused.derivatives_plain(*k2, P, W, C)
-    out = [torch.full((H, 4, B), np.nan, dtype=torch.float64), torch.full((H, 4, 17, B), np.nan, dtype=torch.float64)]
-    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(4)]
-    _call(emulated, "laf_riccati_unfused", build.kernel_consts(P, CostWeights(), C, 6, True), H, B,
-          list(derivs) + out)
     ref = riccati_unfused.riccati_unfused_plain(*derivs, P, C.dt, C.u_lb, C.u_ub, 6, True)
-    _sweep_close(out[:4] + [out[4] > 0, out[5]], ref, 1e-9)
+    _sweep_close(_k3(emulated, derivs, P, C, True), ref, 1e-9)
     out = [torch.full((H, 17, B), np.nan, dtype=torch.float64), torch.full((H, 4, B), np.nan, dtype=torch.float64),
            torch.full((B,), np.nan, dtype=torch.float64)]
     _call(emulated, "laf_rollout", build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp), H, B, k1 + out)
