@@ -2,9 +2,11 @@
 
 Builds the hand-written kernels from learningagileflight_se3_torch/csrc/,
 holds each against its plain PyTorch version on the card, drives the
-batched solver at the bench.py operating point, the 10 Hz deployment tick
-and stage-2 RL training of DNN1, and fails (non-zero exit, no result line)
-if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
+batched solver at the bench.py operating point, the 10 Hz deployment tick,
+stage-2 RL training of DNN1, the batched 100 Hz closed-loop flight that
+scores the shipped DNN2, and stages 1 and 3 (pretraining, imitation), and
+fails (non-zero exit, no result line) if any phase fails or if there is no
+CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
@@ -32,6 +34,46 @@ Phases, each printing its numbers on lines of its own:
              analytic epochs from nn_pre, one fd step, resume against the
              uninterrupted run, the step's time split, and both learning
              signals on CUDA against the CPU
+  9 closed loop  the nn3_1 DNN2 through 128 scenarios x 500 steps (f32, H=50,
+             max_iters=45, tol=1e-4, gtol=3e-4, no_progress_iters=10) on the
+             scenarios and gate noise the JAX package's benchmark drew for
+             seed 2024 (moving gate, ground-truth velocity), then seed 4096,
+             seed 2024 with the Kalman filter (gate_obs_noise=0.01) and with
+             a static gate: each run's JSON, wall time, replan iterations
+             and K1 / K2 launches; seed 4096's flight also counts the K1
+             launches of each DDP iteration.  Gates: traversal success >= 0.90
+             on each run, at most 2 diverged of 128, seed 2024 within 0.05 of
+             the JAX package's record 0.9688 (artifacts/bench_success.json, a
+             TPU's f32 run of another solver entry; no per-lane record exists,
+             so only the aggregates are compared).  After seed 2024's flight,
+             K1 and K2 against their plain versions on the inputs its cold
+             first replan and its warm-started second give them (B=128, f32
+             and f64, phase 3's gates).  Then, after phase 10, the kernel path
+             against the plain path end to end: the first 30 steps (3
+             replans) of 16 of those scenarios on CUDA and on the CPU in f64
+             at the flight's solver settings.  The paths differ by rounding,
+             and where a line-search or exit test is nearly a tie it falls
+             differently and the paths part, so not every lane can agree:
+             gated are the lanes whose every
+             replan took the same number of iterations on both paths (at
+             least 4, median within 1e-9 after the first replan and 1e-6 over
+             the 30 steps) and the count of all lanes within 1e-6 (at least
+             8 of 16); and for the lane that differs most after the first
+             replan the call at which the two paths part is found from both
+             sides' records of every kernel call, and K1 and K2 are held
+             against their plain versions on the kernel path's inputs at that
+             call and at calls before it (that lane within 1e-9 and 1e-8).
+             The CPU side runs in a process of its own, started once seed
+             2024's flight is timed
+  10 stages  300 pretraining steps of 256 from a seeded init (the loss falls;
+             eval MSE beside artifacts/pretrain_loss.npy's level); 3
+             imitation epochs at the --full width (64 scenarios, H=50, 10
+             passes, window frame) from nn_deep with the collect's and the
+             passes' time, the teacher solve's status histogram and K1 / K2
+             launches; the collect on CUDA against the CPU plain path in f64
+             at tol=1e-9, gtol=1e-7 (inputs and labels on the lanes both call
+             converged: at least 8 lanes, median within 1e-9, 90% within
+             1e-6), the CPU side again in a process of its own
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of phase 4's solve, the main path, `launches_by_path` each path's
@@ -41,10 +83,16 @@ and {"ok": true, "device": {...}}.  Every time is printed with the card's
 nvidia-smi name and power limit.
 
 Usage: python3 chip_smoke.py
+       python3 chip_smoke.py --phases 9,10   (phases 1 and 2 and the named ones only: a
+                                              developer's partial run checks them and prints no
+                                              result lines)
+       python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9 and 10 start
+                                              for the CPU side of their comparisons)
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -82,6 +130,35 @@ ONE_THREAD_MS = {("K1", 2048): 0.2985, ("K2", 2048): 2.0112, ("K1", 256): 0.1446
 # and the gains are NaN, and before the regularisation has fallen so far that
 # the f32 gains are ill-conditioned
 INPUT_ITERS = 10
+# Phases 9 and 10 hold the kernel path (CUDA) against the plain path (CPU) in
+# f64, end to end.  The two paths agree to about 1e-12 a kernel call, and
+# within a solve their trajectories differ by rounding (up to about 1e-10).
+# A line-search or exit test that is nearly a tie then falls differently on
+# the two paths, one takes a step the other does not, and from there the
+# paths part for good.  So that comparison cannot hold every lane, and it is
+# not what holds the kernels on this path:
+#   * K1 and K2 are held against their plain versions on the inputs a cold
+#     and a warm-started replan of the flight give them (B=128; f32, and the
+#     same inputs in f64), under phase 3's gates;
+#   * end to end the closed loops are compared on the lanes whose every
+#     replan took the same number of DDP iterations on both paths (median
+#     1e-9 after the first replan, 1e-6 over the window), and at least half of
+#     all lanes must agree to 1e-6 over the window;
+#   * for the lane that differs most after the first replan, both sides
+#     record every kernel call of that replan (K1's cost, K2's dV1): the
+#     call at which the paths part is found, the growth up to it is printed,
+#     and the kernels are held against their plain versions on the kernel
+#     path's own inputs at that call and at calls before it;
+#   * the collects are compared on the lanes both paths call converged, at
+#     tight tolerances.
+# The plain side takes about a second a DDP iteration at H=50, so each runs
+# in a CPU process of its own (`--plain-side`, 2 threads, its result under
+# build/smoke/), started after seed 2024's timed flight: the later flights
+# and phase 10 run beside them, and their times say so.  CMP_STEPS closed-loop
+# steps are 3 replans, one cold and two warm.
+CMP_LANES, CMP_STEPS, CMP_COLLECT = 16, 30, 64
+PLAIN_SIDE_TIMEOUT_S = 600
+PARTED = 1e-9  # two paths' records of one call differ by more: they have parted
 
 
 def log(*a):
@@ -142,6 +219,78 @@ def max_abs(a, b):
     return float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
 
 
+def lanes_agree(lane_diff, min_lanes, median_gate, min_share=0.0):
+    """(ok, text) for the per-lane max differences of the lanes compared: at
+    least `min_lanes` of them, their median at most `median_gate`, and at
+    least `min_share` of them within 1e-6."""
+    n = lane_diff.numel()
+    if n == 0:
+        return False, "no lane to compare"
+    med, share = float(lane_diff.median()), float((lane_diff <= 1e-6).double().mean())
+    return (n >= min_lanes and med <= median_gate and share >= min_share,
+            f"{n} lanes (gate {min_lanes}): median diff {med:.3e} (gate {median_gate:.0e}), within 1e-6 "
+            f"{share:.4f} (gate {min_share}), max {float(lane_diff.max()):.3e}")
+
+
+def compared_closed_loop(device, keep_inputs=False):
+    """The first CMP_STEPS steps of the first CMP_LANES exported scenarios of
+    seed 2024 in f64 at the flight's solver settings, on `device`: the log's
+    states, traversal times and replan iterations as CPU tensors, the
+    seconds it took, and `calls`: for every K2 call and line-search K1 call
+    of the first replan, {(kind, iteration, trip): that call's per-lane
+    record} (K1's cost, K2's dV1).  With keep_inputs also `inputs`, the
+    same calls' (tensors, model arguments, keyword arguments)."""
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.solver.watch import watched_kernels
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    calls, inputs = {}, {}
+
+    def on_call(kind, solve, iteration, trip, a, kw, out):
+        if solve != 0 or kind == "K1 cost":
+            return
+        key = (kind, iteration, trip or 0)
+        calls[key] = out[2].detach().cpu()  # K1 (Zn, Un, cost); K2 (kk, KK, dV1, ...)
+        if keep_inputs:
+            inputs[key] = ([x.clone() for x in a[:9]], a[9:], kw)
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=CMP_STEPS,
+                               device=device, dtype=torch.float64)
+    t0 = time.perf_counter()
+    with watched_kernels(on_call):
+        trace = sim(scen[:CMP_LANES], gate_noise=noise[:CMP_LANES, :CMP_STEPS])
+    states = trace.states.cpu()  # the fetch waits for the card
+    out = dict(states=states, tra_times=trace.tra_times.cpu(), iters=trace.solver_iters.cpu(),
+               seconds=time.perf_counter() - t0, calls=calls)
+    return dict(out, inputs=inputs) if keep_inputs else out
+
+
+def compared_collect(device):
+    """The imitation collect of CMP_COLLECT seeded scenarios (H=50, window
+    frame, from nn_deep) in f64 at tight tolerances (tol=1e-9, gtol=1e-7, no
+    progress window, 45 iterations), on `device`: inputs, labels and the
+    teacher solve's converged flags as CPU tensors, and the seconds it took."""
+    from learningagileflight_se3_torch.config import CostWeights, QuadParams
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios
+    from learningagileflight_se3_torch.sim.bench import tight_solver_config
+    from learningagileflight_se3_torch.train.imitation import make_imitation_collect
+    from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
+
+    scen = sample_scenarios(torch.Generator().manual_seed(5), CMP_COLLECT, dtype=torch.float64)
+    collect = make_imitation_collect(load_dnn1(NN_DEEP_DNN1).to(device), QuadParams(), CostWeights(),
+                                     tight_solver_config(), window_frame=True)
+    t0 = time.perf_counter()
+    inputs, labels, sol = collect(scen.to(device), with_solution=True)
+    inputs = inputs.cpu()  # the fetch waits for the card
+    return dict(inputs=inputs, labels=labels.cpu(), converged=sol.converged.cpu(),
+                seconds=time.perf_counter() - t0)
+
+
+PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect}
+
+
 def reset_launches():
     """Set the launch count of every kernel wrapper to 0."""
     from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
@@ -170,6 +319,7 @@ class Smoke:
         self.kernels = {}
         self.path_launches = {}  # path -> read_launches() over that path's run
         self.k2_inputs = {}      # B -> phase 3's K2 inputs (f64)
+        self.plain_sides = {}    # name -> (CPU process, its result file)
 
     def check(self, ok, what):
         if not ok:
@@ -184,6 +334,37 @@ class Smoke:
         except Exception:  # every phase runs; any failure fails the run
             self.failures.append(f"phase {name} raised")
             log(f"FAIL: phase {name} raised\n{traceback.format_exc()}")
+
+    def start_plain_side(self, what):
+        """Start the CPU process that runs PLAIN_SIDES[what], once."""
+        if what in self.plain_sides:
+            return
+        out = os.path.join(REPO, "build", "smoke", f"{what}.pt")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        if os.path.exists(out):
+            os.remove(out)
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--plain-side", what, "--out", out],
+                                stdout=subprocess.DEVNULL)
+        self.plain_sides[what] = (proc, out)
+
+    def plain_side(self, what):
+        """The result of the CPU process of `what` and the seconds waited for it."""
+        self.start_plain_side(what)
+        proc, out = self.plain_sides[what]
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=PLAIN_SIDE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"the plain side of {what} did not end within {PLAIN_SIDE_TIMEOUT_S} s")
+        if rc != 0:
+            raise RuntimeError(f"the plain side of {what} exited with code {rc}")
+        return torch.load(out), time.perf_counter() - t0
+
+    def stop_plain_sides(self):
+        for proc, _ in self.plain_sides.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
     # ------------------------------------------------------------ 1 device
     def device(self):
@@ -266,6 +447,8 @@ class Smoke:
         sane = torch.isfinite(ref[2]) & (ref[2].abs() < 1e12)
         n_sane = f"{int(sane.sum())} of {sane.numel()} lanes sane"
         self.check(bool(sane.float().mean() >= 0.95), f"{what}: {n_sane}, fewer than 95%")
+        if not bool(sane.any()):
+            return [float("inf")] * 3
         out_s = [a[..., sane] for a in out]
         ref_s = [b[..., sane] for b in ref]
         errs = [max_abs(a, b) for a, b in zip(out_s, ref_s)]
@@ -511,6 +694,7 @@ class Smoke:
         )
         from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
         from learningagileflight_se3_torch.policy import make_fd_gradient_batched, make_rewards_batched
+        from learningagileflight_se3_torch.solver.watch import capture_inputs
         from learningagileflight_se3_torch.train.rl import make_rl_train_step, run_rl_training
         from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
 
@@ -535,7 +719,8 @@ class Smoke:
         rewards = make_rewards_batched(P, W, cfg, R)
         scen = sample_scenarios(torch.Generator(device=dev).manual_seed(1234), B)
         with torch.no_grad():
-            r_pre, kernel_inputs_analytic = self._capture(lambda: rewards(*problem(scen, nn_pre)))
+            r_pre, kernel_inputs_analytic = capture_inputs(lambda: rewards(*problem(scen, nn_pre)),
+                                                           k2_call=INPUT_ITERS)
             r_deep = rewards(*problem(scen, nn_deep))
         m_pre, m_deep = float(r_pre.mean()), float(r_deep.mean())
         log(f"train: mean reward on {B} scenarios: nn_pre {m_pre:.4f}, nn_deep {m_deep:.4f} "
@@ -548,9 +733,9 @@ class Smoke:
         # analytic signal's solve (B=256) and the fd signal's (9 x 256 probe
         # lanes), on the inputs these solves gave the kernels
         fd = make_fd_gradient_batched(P, W, cfg, R)
-        _, kernel_inputs_fd = self._capture(lambda: fd(*problem(scen, nn_pre)))
-        self._kernels_at_training_shapes("analytic", kernel_inputs_analytic)
-        self._kernels_at_training_shapes("fd", kernel_inputs_fd)
+        _, kernel_inputs_fd = capture_inputs(lambda: fd(*problem(scen, nn_pre)), k2_call=INPUT_ITERS)
+        self._kernels_at_path_shapes("phase 8", "analytic solve", kernel_inputs_analytic)
+        self._kernels_at_path_shapes("phase 8", "fd solve", kernel_inputs_fd)
 
         # 3: three analytic epochs of the 400-epoch schedule from nn_pre; the
         # run is cut after epoch 3 by its per-epoch log callback
@@ -642,49 +827,19 @@ class Smoke:
         self._train_split(P, W, R, cfg, scen, nn_pre)
         self._signals_cuda_vs_cpu(P, W, R, nn_pre)
 
-    def _capture(self, run, k2_call=INPUT_ITERS):
-        """run() with recorders around the batched solver's K1 and K2
-        wrappers.  Returns run()'s result and {"K2": the inputs of the
-        solve's k2_call-th K2 launch (its last, if it made fewer), "K1": those
-        of the first K1 launch after it, a line-search trip}, each as
-        (tensors, model args, keyword args).  The recorders launch nothing of
-        their own."""
-        from learningagileflight_se3_torch.solver import ilqr_batched
-
-        real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward
-        got, n_k2 = {}, [0]
-
-        def k2(*a, **kw):
-            n_k2[0] += 1
-            if n_k2[0] <= k2_call:
-                got["K2"] = ([x.clone() for x in a[:9]], a[9:], kw)
-                got.pop("K1", None)
-            return real_k2(*a, **kw)
-
-        def k1(*a, **kw):
-            if "K2" in got and "K1" not in got:
-                got["K1"] = ([x.clone() for x in a[:9]], a[9:], kw)
-            return real_k1(*a, **kw)
-
-        ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, k2
-        try:
-            out = run()
-        finally:
-            ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = real_k1, real_k2
-        return out, got
-
-    def _kernels_at_training_shapes(self, signal, got):
+    def _kernels_at_path_shapes(self, phase, solve, got, timed=True):
         """K1 and K2 against their plain versions on the inputs one DDP
-        iteration of a training solve gave them (see _capture), in f64 and
-        f32 under phase 3's gates, and their f32 times beside the plain
-        versions' (kernel median of 20, plain of 5)."""
+        iteration of a path's solve gave them (solver/watch.py
+        capture_inputs), in f64 and f32 under phase 3's gates, and with
+        `timed` their f32 times beside the plain versions' (kernel median of
+        20, plain of 5)."""
         from learningagileflight_se3_torch.ops import riccati_fused, rollout
 
-        if not self.check("K1" in got and "K2" in got, f"phase 8 {signal}: K1 / K2 inputs not captured"):
+        if not self.check("K1" in got and "K2" in got, f"{phase} {solve}: K1 / K2 inputs not captured"):
             return
         (k1, k1_args, k1_kw), (k2, k2_args, k2_kw) = got["K1"], got["K2"]
         H, _, B = k2[0].shape
-        where = f"{signal} solve, H={H}, B={B}"
+        where = f"{solve}, H={H}, B={B}"
         for dtype in (torch.float64, torch.float32):
             name = "f64" if dtype == torch.float64 else "f32"
             a1 = [x.to(dtype) for x in k1]
@@ -697,6 +852,8 @@ class Smoke:
             torch.cuda.synchronize()
             self.check_sweep(f"K2 {name} ({where})", out,
                              riccati_fused.riccati_backward_plain(*a2, *k2_args, **k2_kw), dtype)
+        if not timed:
+            return
         ms = [median_ms(lambda: rollout.rollout_forward(*a1, *k1_args, **k1_kw), card_only=True),
               median_ms(lambda: rollout.rollout_forward_plain(*a1, *k1_args, **k1_kw), n=5),
               median_ms(lambda: riccati_fused.riccati_backward(*a2, *k2_args, **k2_kw), card_only=True),
@@ -818,6 +975,280 @@ class Smoke:
             if name != "analytic":
                 self.check(t_same >= 0.85, f"signals {name}: time rule equal on {t_same:.4f} < 0.85")
 
+    # ------------------------------------------------------- 9 closed loop
+    def closed_loop(self):
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config, fly, summarize
+        from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+        from learningagileflight_se3_torch.solver.watch import capture_inputs, watched_kernels
+        from learningagileflight_se3_torch.utils.weights import (
+            bench_scenarios, bench_scenarios_path, load_dnn2,
+        )
+
+        # the JAX package's quality record (artifacts/bench_success*.json, platform tpu)
+        jax_record = {"seed 2024": 0.9688, "seed 4096": 0.9297, "seed 2024, Kalman filter": 0.9531,
+                      "seed 2024, static gate": 0.9844}
+        runs = [("seed 2024", 2024, {}), ("seed 4096", 4096, {}),
+                ("seed 2024, Kalman filter", 2024, dict(estimate_gate_motion=True, gate_obs_noise=0.01)),
+                ("seed 2024, static gate", 2024, dict(static_gate=True))]
+        model2 = load_dnn2()
+        cfg = flight_solver_config()
+        for name, seed, kw in runs:
+            scen, noise = bench_scenarios(bench_scenarios_path(seed))
+            # seed 4096's flight also counts the K1 launches of each DDP
+            # iteration and the lanes whose sweep failed (no fetch in the loop)
+            trips, at_iteration, fails = [], [], []
+
+            def count(kind, solve, iteration, trip, a, kw_, out):
+                if kind == "K2":
+                    trips.append(0)
+                    at_iteration.append(iteration)
+                    fails.append(out[4].sum())
+                elif kind == "K1":
+                    trips[-1] += 1
+
+            plain0 = read_plain_calls()
+            reset_launches()
+            if name == "seed 4096":
+                with watched_kernels(count):
+                    trace, metrics, wall = fly(model2, scen, noise, steps=500, seed=seed, device="cuda", **kw)
+            else:
+                trace, metrics, wall = fly(model2, scen, noise, steps=500, seed=seed, device="cuda", **kw)
+            n = read_launches()
+            self.path_launches.setdefault("closed_loop", n)  # the first run: seed 2024
+            beside = ("no other process of this script running" if name == "seed 2024" else
+                      "beside the comparisons' busy CPU processes, 2 threads each"
+                      + (", and with every kernel call counted" if trips else ""))
+            out = summarize(metrics, trace.solver_iters, sim_steps=500, seed=seed, run=name, wall_s=wall,
+                            launches=n, platform=torch.cuda.get_device_name(0))
+            log(f"closed loop ({name}): {json.dumps(out)}")
+            log(f"closed loop ({name}): 128 x 500 steps in {wall:.2f} s (host, synced; {beside}); success "
+                f"{out['value']:.4f} (the JAX package's record {jax_record[name]}, aggregates only), strict "
+                f"{out['success_and_reached_2m']:.4f}, diverged {out['n_diverged']}; replan iterations p50 "
+                f"{out['replan_solver_iters_p50']} p90 {out['replan_solver_iters_p90']}; launches K1 {n['K1']} "
+                f"K2 {n['K2']} [{self.smi}]")
+            self.check(out["value"] >= 0.90, f"phase 9 {name}: success {out['value']} < 0.90")
+            self.check(out["n_diverged"] <= 2, f"phase 9 {name}: {out['n_diverged']} diverged > 2")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 9 {name}: kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 9 {name} moved a plain-version counter")
+            self.check(trace.states.shape == (128, 501, 13), f"phase 9 {name}: log misshapen")
+            if trips:
+                t, k = np.asarray(trips), np.asarray(at_iteration)
+                failed = torch.stack(fails).cpu().numpy() > 0
+                full = t >= cfg.line_search_steps
+                bands = [(0, 5), (5, 15), (15, 30), (30, cfg.max_iters)]
+                by_band = ", ".join(f"{lo}-{hi - 1}: {t[(k >= lo) & (k < hi)].mean():.2f} "
+                                    f"({int(((k >= lo) & (k < hi)).sum())})"
+                                    for lo, hi in bands if ((k >= lo) & (k < hi)).any())
+                log(f"closed loop ({name}): K1 launches by DDP iteration (the lock-step line search makes as "
+                    f"many trips as its slowest live lane): {t.size} iterations, mean {t.mean():.2f} trips, "
+                    f"share at the whole ladder of {cfg.line_search_steps} {full.mean():.4f}, at most 3 trips "
+                    f"{(t <= 3).mean():.4f}; mean trips by the iteration's place in its solve (iterations "
+                    f"counted) {by_band}; a failed sweep among the 128 lanes (finished lanes included) in "
+                    f"{failed.mean():.4f} of all iterations and in {failed[full].mean() if full.any() else 0.0:.4f} "
+                    f"of the whole-ladder ones; the other K1 launches open the solves "
+                    f"({n['K1'] - int(t.sum())})")
+            if name == "seed 2024":
+                self.check(abs(out["value"] - 0.9688) <= 0.05,
+                           f"phase 9 seed 2024: success {out['value']} not within 0.05 of 0.9688")
+                # seed 2024's time is taken: the CPU sides of the comparisons start
+                self.start_plain_side("closed_loop")
+                self.start_plain_side("collect")
+                # K1 and K2 against their plain versions on the inputs this
+                # flight's first two replans give them, the cold one and the
+                # warm-started one, each at its 10th DDP iteration (a solve's
+                # first sweeps fail until the regularisation has grown)
+                sim = make_closed_loop_sim(model2, solver_cfg=cfg, steps=11, device="cuda")
+                for solve, what in ((0, "cold replan"), (1, "warm-started replan")):
+                    _, got = capture_inputs(lambda: sim(scen, gate_noise=noise[:, :11]), solve=solve,
+                                            k2_call=INPUT_ITERS)
+                    self._kernels_at_path_shapes("phase 9", f"closed loop, {what}", got, timed=False)
+
+    def closed_loop_paths(self):
+        """The kernel path against the plain path, end to end in f64 (see CMP_STEPS)."""
+        kernel = compared_closed_loop("cuda", keep_inputs=True)
+        plain, waited = self.plain_side("closed_loop")
+        finite = bool(torch.isfinite(plain["states"]).all() and torch.isfinite(kernel["states"]).all())
+        self.check(finite, "phase 9 CUDA vs CPU f64: a state is not finite")
+        # after the first replan (one cold solve and the plant steps it steers)
+        # nothing has compounded across replans; over the window a lane's difference grows
+        for what, upto, gate in (("first replan", 10, 1e-9), (f"{CMP_STEPS // 10} replans", CMP_STEPS, 1e-6)):
+            same = (kernel["iters"][:, :upto] == plain["iters"][:, :upto]).all(dim=1)
+            lane_diff = (kernel["states"] - plain["states"])[:, :upto + 1].abs().amax(dim=(1, 2))
+            t_diff = (kernel["tra_times"] - plain["tra_times"])[:, :upto].abs().amax(dim=1)
+            ok, text = lanes_agree(lane_diff[same], min_lanes=4, median_gate=gate)
+            self.check(ok, f"phase 9 CUDA vs CPU f64 states, {what}: {text}")
+            rest = lane_diff[~same]
+            within = int((lane_diff <= 1e-6).sum())
+            log(f"closed loop, {what} ({upto} steps) of {CMP_LANES} scenarios, f64, the flight's solver "
+                f"settings: states on the lanes whose every replan took the same iterations on both paths, "
+                f"{text}, their traversal times max {float(t_diff[same].max()) if bool(same.any()) else 0.0:.3e}"
+                f"; of all {CMP_LANES} lanes {within} within 1e-6 (gate {CMP_LANES // 2}), the other "
+                f"{rest.numel()} lanes max {float(rest.max()) if rest.numel() else 0.0:.3e}")
+            self.check(within >= CMP_LANES // 2, f"phase 9 CUDA vs CPU f64 states, {what}: {within} of "
+                                                 f"{CMP_LANES} lanes within 1e-6")
+        log(f"closed loop: {CMP_LANES} scenarios x {CMP_STEPS} steps, f64: CUDA {kernel['seconds']:.2f} s (with "
+            f"the first replan's calls recorded), CPU {plain['seconds']:.2f} s in a process of its own "
+            f"({waited:.1f} s waited for); all finite {finite}")
+        self._where_paths_part(kernel, plain)
+
+    def _where_paths_part(self, kernel, plain):
+        """For the lane whose states differ most after the first replan: the
+        first kernel call of that replan at which the two paths' records (K1's
+        cost, K2's dV1) differ by more than PARTED, the growth of their
+        difference up to it, and K1 and K2 against their plain versions on
+        the kernel path's own inputs at that call and at calls before it
+        (that lane within phase 3's f64 gates, 1e-9 and 1e-8)."""
+        from learningagileflight_se3_torch.ops import riccati_fused, rollout
+
+        d10 = (kernel["states"] - plain["states"])[:, :11].abs().amax(dim=(1, 2))
+        lane = int(d10.argmax())
+        if float(d10[lane]) <= 1e-6:
+            log(f"closed loop: no lane differs by more than 1e-6 after the first replan (max {float(d10[lane]):.3e})")
+            return
+        order = lambda key: (key[1], key[0] == "K1", key[2])  # an iteration's sweep, then its trips
+        keys = sorted(set(kernel["calls"]) & set(plain["calls"]), key=order)
+
+        sane = lambda x: bool(np.isfinite(x)) and abs(x) < 1e12
+
+        def apart(key):
+            """How far the two paths' records of a call differ on the lane;
+            0 where neither is sane (a failed sweep, a rollout that blew up:
+            the line search rejects it on both paths)."""
+            a, b = float(kernel["calls"][key][lane]), float(plain["calls"][key][lane])
+            if sane(a) and sane(b):
+                return abs(a - b) / max(abs(b), 1.0)
+            return 0.0 if not sane(a) and not sane(b) else float("inf")
+
+        diffs = [apart(k) for k in keys]
+        parted = next((i for i, d in enumerate(diffs) if d > PARTED), None)
+        if not self.check(parted is not None, f"phase 9: lane {lane} differs by {float(d10[lane]):.3e} after the "
+                                              f"first replan, yet no recorded call of it differs by {PARTED}"):
+            return
+        by_iteration = {}
+        for k, d in zip(keys[:parted + 1], diffs):
+            by_iteration[k[1]] = max(by_iteration.get(k[1], 0.0), d)
+        before = keys[parted][1] - (keys[parted][0] == "K2")  # the iteration whose decisions came last
+        trips = [sum(1 for k in side["calls"] if k[0] == "K1" and k[1] == before) for side in (kernel, plain)]
+        log(f"closed loop, where the paths part: lane {lane} (states differ by {float(d10[lane]):.3e} after the "
+            f"first replan; iterations {int(kernel['iters'][lane, 0])} on the card, {int(plain['iters'][lane, 0])} "
+            f"on the CPU) first differs by more than {PARTED:.0e} at {keys[parted]} (kind, iteration, trip): "
+            f"{diffs[parted]:.3e}; before that call the two paths' records differ by at most "
+            f"{max(diffs[:parted], default=0.0):.3e}; iteration {before} made {trips[0]} line-search trips on the "
+            f"card and {trips[1]} on the CPU (the batch's); the largest difference by iteration: "
+            + ", ".join(f"{it}: {d:.1e}" for it, d in by_iteration.items()))
+        # the calls to replay: the parting one, the K2 and the first K1 call of
+        # its iteration, of the iteration before, of the one halfway and of the first
+        its = sorted({0, keys[parted][1] // 2, max(keys[parted][1] - 1, 0), keys[parted][1]})
+        replay = [k for k in keys[:parted + 1] if k[1] in its and (k == keys[parted] or k[2] == 0)]
+        worst = {"K1": 0.0, "K2": 0.0}
+        for key in replay:
+            tensors, args, kw = kernel["inputs"][key]
+            if key[0] == "K1":
+                out = rollout.rollout_forward(*tensors, *args, **kw)
+                ref = rollout.rollout_forward_plain(*tensors, *args, **kw)
+            else:
+                out = riccati_fused.riccati_backward(*tensors, *args, **kw)
+                ref = riccati_fused.riccati_backward_plain(*tensors, *args, **kw)
+            errs, same = zip(*(rel_err(a[..., lane].to(torch.float64), b[..., lane].to(torch.float64))
+                               for a, b in zip(out, ref)))
+            # a rollout that blew up is compared nowhere (check_rollout): the line search rejects it
+            gated = key[0] == "K2" or sane(float(ref[2][lane]))
+            log(f"closed loop, where the paths part: {key} on the kernel path's inputs, lane {lane}: kernel against "
+                f"plain rel err {max(errs):.3e}, NaN pattern equal {all(same)}{'' if gated else ' (blown up, not gated)'}"
+                f"; the two paths' records there differ by {apart(key):.3e}")
+            if gated:
+                worst[key[0]] = max(worst[key[0]], max(errs))
+                self.check(all(same), f"phase 9 where the paths part: {key} NaN pattern of lane {lane} differs")
+        self.check(worst["K1"] <= 1e-9 and worst["K2"] <= 1e-8,
+                   f"phase 9 where the paths part: kernel against plain on lane {lane}: K1 {worst['K1']:.3e} "
+                   f"(gate 1e-9), K2 {worst['K2']:.3e} (gate 1e-8)")
+
+    # ------------------------------------------------- 10 stages 1 and 3
+    def stages(self):
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams
+        from learningagileflight_se3_torch.models.sampler import sample_scenarios
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config
+        from learningagileflight_se3_torch.train.imitation import (
+            make_imitation_collect, run_imitation_training,
+        )
+        from learningagileflight_se3_torch.train.pretrain import evaluate_pretrain, run_pretraining
+        from learningagileflight_se3_torch.train.rl import epoch_generator
+        from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
+
+        dev = torch.device("cuda")
+        # stage 1: 300 steps of 256 from a seeded initialisation
+        stamps = [time.perf_counter()]
+
+        def stamp(_line):  # one line per chunk of 30 steps, after its loss was fetched
+            stamps.append(time.perf_counter())
+
+        model1, losses = run_pretraining(0, steps=300, batch_size=256, log_every=30, log_fn=stamp, device=dev)
+        torch.cuda.synchronize()
+        sec, chunks = time.perf_counter() - stamps[0], np.diff(stamps)
+        mse = evaluate_pretrain(model1, torch.Generator(device=dev).manual_seed(1))
+        shipped = np.load(os.path.join(REPO, "artifacts", "pretrain_loss.npy"))
+        log(f"pretrain: 300 steps of 256 in {sec:.2f} s (host, synced; the first 30 steps {chunks[0]:.2f} s, "
+            f"the later chunks {np.median(chunks[1:]) / 30 * 1e3:.2f} ms a step); loss every 30 steps "
+            f"{[round(x, 4) for x in losses]}; eval MSE {mse:.5f}; the shipped curve "
+            f"(artifacts/pretrain_loss.npy, 3000 steps, every 300) runs {shipped[0]:.4f} -> {shipped[-1]:.4f} "
+            f"[{self.smi}]")
+        self.check(len(losses) == 10 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+                   and np.isfinite(mse), f"phase 10 pretraining: losses {losses}, eval MSE {mse}")
+
+        # stage 3: 3 epochs at the --full width from nn_deep
+        P, W = QuadParams(), CostWeights()
+        cfg = flight_solver_config()
+        B, PASSES = 64, 10
+        teacher = load_dnn1(NN_DEEP_DNN1).to(dev)
+        collect = make_imitation_collect(teacher, P, W, cfg, window_frame=True)
+        collect(sample_scenarios(epoch_generator(99, 0, dev), B))  # warm-up
+        plain0 = read_plain_calls()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs, labels, sol = collect(sample_scenarios(epoch_generator(0, 0, dev), B), with_solution=True)
+        torch.cuda.synchronize()
+        t_collect = time.perf_counter() - t0
+        n_collect = read_launches()
+        hist = torch.bincount(sol.status.long(), minlength=5).tolist()
+        log(f"imitation: collect of {B} teacher solves (H=50, cold, f32) {t_collect * 1e3:.1f} ms (host, "
+            f"synced): iterations mean {sol.iterations.float().mean().item():.1f} max {int(sol.iterations.max())}, "
+            f"status histogram {hist}, converged {sol.converged.float().mean().item():.4f}; launches K1 "
+            f"{n_collect['K1']} K2 {n_collect['K2']} [{self.smi}]")
+        self.check(inputs.shape == (B * 50, 18) and labels.shape == (B * 50, 7)
+                   and bool(torch.isfinite(inputs).all() and torch.isfinite(labels).all()),
+                   "phase 10 collect: misshapen or non-finite")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model2, imi_losses = run_imitation_training(
+            0, teacher, epochs=3, batch_scenarios=B, sgd_passes=PASSES, lr=1e-3, lr_schedule=True,
+            params_q=P, weights=W, solver_cfg=cfg, window_frame=True, log_fn=lambda *_: None, device=dev)
+        torch.cuda.synchronize()
+        t_epochs = time.perf_counter() - t0
+        self.path_launches["imitation"] = n = read_launches()
+        log(f"imitation: 3 epochs of {B} scenarios and {PASSES} passes in {t_epochs:.3f} s (host, synced), "
+            f"{t_epochs / 3 * 1e3:.1f} ms an epoch, of which the collect about {t_collect * 1e3:.1f} ms; "
+            f"last-pass losses {[round(x, 5) for x in imi_losses]}; launches K1 {n['K1']} K2 {n['K2']} "
+            f"[{self.smi}]")
+        self.check(len(imi_losses) == 3 and all(np.isfinite(imi_losses)), f"phase 10 imitation losses {imi_losses}")
+        self.check(min(n["K1"], n["K2"]) > 0, f"phase 10 kernel launches {n}")
+        self.check(read_plain_calls() == plain0, "phase 10 moved a plain-version counter")
+        self.check(all(bool(torch.isfinite(p).all()) for p in model2.parameters()),
+                   "phase 10 DNN2 parameters not finite")
+
+        # the collect on CUDA against the CPU plain path in f64 (see CMP_STEPS)
+        kernel = compared_collect("cuda")
+        plain, waited = self.plain_side("collect")
+        both = kernel["converged"] & plain["converged"]
+        lane = lambda k: (kernel[k] - plain[k]).abs().reshape(CMP_COLLECT, -1).amax(dim=1)[both]
+        (ok_in, text_in), (ok_lab, text_lab) = (lanes_agree(lane(k), min_lanes=8, median_gate=1e-9, min_share=0.9)
+                                                for k in ("inputs", "labels"))
+        self.check(ok_in and ok_lab, f"phase 10 collect CUDA vs CPU f64: inputs {text_in}; labels {text_lab}")
+        log(f"imitation: collect of {CMP_COLLECT}, f64, tol=1e-9, gtol=1e-7, 45 iterations: CUDA "
+            f"{kernel['seconds']:.2f} s, CPU {plain['seconds']:.2f} s in a process of its own ({waited:.1f} s "
+            f"waited for); on the lanes converged in both, inputs {text_in}; labels {text_lab}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -827,18 +1258,44 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     import learningagileflight_se3_torch  # noqa: F401  (fails outside the repo)
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="a developer's switch: comma-separated phase numbers for a partial run, which "
+                         "prints no result lines")
+    ap.add_argument("--plain-side", choices=sorted(PLAIN_SIDES), default=None,
+                    help="run one comparison's plain path on the CPU and save it to --out (phases 9 and 10 "
+                         "start this in a process of its own)")
+    ap.add_argument("--out", default=None, help="the result file of --plain-side")
+    args = ap.parse_args()
+    if args.plain_side:
+        torch.set_num_threads(2)
+        torch.save(PLAIN_SIDES[args.plain_side]("cpu"), args.out)
+        return 0
+    only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
+
     s = Smoke()
-    s.run("1 device", s.device)
-    s.run("2 build", s.build)
-    s.run("3 kernels", s.kernels_vs_plain)
-    s.run("4 solve", s.solve)
-    s.run("5 paths", s.paths)
-    s.run("6 tick", s.tick)
-    s.run("7 K3", s.k3)
-    s.run("8 train", s.train)
-    if s.failures or len(s.kernels) != 3:
+    try:
+        return drive(s, only)
+    finally:
+        s.stop_plain_sides()
+
+
+def drive(s, only):
+    """Run the phases (all, or phases 1, 2 and `only`) and print the result lines."""
+    phases = [("1 device", s.device), ("2 build", s.build), ("3 kernels", s.kernels_vs_plain),
+              ("4 solve", s.solve), ("5 paths", s.paths), ("6 tick", s.tick), ("7 K3", s.k3),
+              ("8 train", s.train), ("9 closed loop", s.closed_loop), ("10 stages", s.stages),
+              # after phase 10, so that its CPU side has had the time it needs
+              ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths)]
+    for name, fn in phases:
+        if only is None or int(name.split()[0]) in only | {1, 2}:
+            s.run(name, fn)
+    if s.failures or (only is None and len(s.kernels) != 3):
         log(f"chip_smoke FAILED: {s.failures}")
         return 1
+    if only is not None:
+        log(f"partial run (phases {sorted(only | {1, 2})}) passed; no result lines")
+        return 0
     # `launches` is the main path's count (phase 4's solve), K3's is phase
     # 7's (it is on no path); `launches_by_path` has each path's own count,
     # the counters set to 0 just before that path and read just after

@@ -10,6 +10,20 @@ from __future__ import annotations
 import torch
 
 
+def normalize(v, eps: float = 0.0):
+    """Unit vector v/|v| over the last axis.  No epsilon by default, as in the
+    reference; pass eps for a safe derivative at 0."""
+    return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)
+
+
+def skew(v):
+    """Cross-product matrix of v (..., 3), (..., 3, 3)."""
+    a, b, c = v.unbind(-1)
+    z = torch.zeros_like(a)
+    rows = [[z, -c, b], [c, z, -a], [-b, a, z]]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def quat_to_dcm_w2b(q):
     """C_B_I: world -> body direction cosine matrix, (..., 3, 3).
     Not normalized internally, as in the reference."""
@@ -20,6 +34,11 @@ def quat_to_dcm_w2b(q):
         2 * (x * z + w * y), 2 * (y * z - w * x), 1 - 2 * (x * x + y * y),
     ]
     return torch.stack(entries, dim=-1).unflatten(-1, (3, 3))
+
+
+def quat_to_dcm_b2w(q):
+    """C_I_B: body -> world rotation matrix (transpose of C_B_I)."""
+    return quat_to_dcm_w2b(q).transpose(-1, -2)
 
 
 def omega_matrix(w):
@@ -35,11 +54,40 @@ def omega_matrix(w):
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def quat_mul(p, q):
+    """Hamilton product, wxyz."""
+    p0, p1, p2, p3 = p.unbind(-1)
+    q0, q1, q2, q3 = q.unbind(-1)
+    return torch.stack(
+        [
+            p0 * q0 - p1 * q1 - p2 * q2 - p3 * q3,
+            p0 * q1 + p1 * q0 + p2 * q3 - p3 * q2,
+            p0 * q2 - p1 * q3 + p2 * q0 + p3 * q1,
+            p0 * q3 + p1 * q2 - p2 * q1 + p3 * q0,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q):
+    """Quaternion conjugate [w, -x, -y, -z]."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
 def axis_angle_to_quat(angle, axis):
     """Unit quaternion from (angle (...), axis (..., 3)); axis normalized."""
     axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
     half = angle / 2.0
     return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def rodrigues_to_axis_angle(w):
+    """The reference's Rd2Rp: theta = 2*atan(|w|), axis = (w + [1e-8,0,0]) / |...|;
+    the tiny x offset regularises the direction at zero rotation.
+    Returns (theta (...), axis (..., 3))."""
+    theta = 2.0 * torch.atan(torch.linalg.vector_norm(w, dim=-1))
+    reg = w + torch.tensor([1e-8, 0.0, 0.0], dtype=w.dtype, device=w.device)
+    return theta, reg / torch.linalg.vector_norm(reg, dim=-1, keepdim=True)
 
 
 def rodrigues_to_quat(w):

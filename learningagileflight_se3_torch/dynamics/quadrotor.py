@@ -5,9 +5,9 @@ Port of `learningagileflight_se3_tpu/dynamics/quadrotor.py`.
 State  x = [r_I(3), v_I(3), q(4, wxyz), w_B(3)]  (..., 13)
 Input  u = [f1, f2, f3, f4]  per-rotor thrusts   (..., 4)
 
-Forward Euler without quaternion renormalization, as in the reference.
-`rollout` is Euler only (the closed loop's RK4 and renormalised steps are
-not ported yet).
+Forward Euler without quaternion renormalization, as in the reference;
+`euler_step_renorm` is the closed loop's plant step and `rk4_step` the
+higher-fidelity option.
 """
 
 from __future__ import annotations
@@ -52,13 +52,56 @@ def euler_step(x, u, dt, params: QuadParams):
     return x + dt * quad_ode(x, u, params)
 
 
-def rollout(x0, U, dt, params: QuadParams):
-    """Roll controls U (..., H, 4) from x0 (..., 13) with Euler steps;
-    returns X (..., H+1, 13)."""
+def euler_step_renorm(x, u, dt, params: QuadParams):
+    """Euler step followed by quaternion renormalization: the plant step of
+    long closed-loop runs, where the drift of |q| under the plain step
+    compounds (the solver keeps the plain step)."""
+    xn = x + dt * quad_ode(x, u, params)
+    q = xn[..., 6:10]
+    q = q / torch.clamp_min(torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-12)
+    return torch.cat([xn[..., 0:6], q, xn[..., 10:13]], dim=-1)
+
+
+def rk4_step(x, u, dt, params: QuadParams, substeps: int = 4):
+    """Classic RK4 with `substeps` sub-intervals."""
+    h = dt / substeps
+    for _ in range(substeps):
+        k1 = quad_ode(x, u, params)
+        k2 = quad_ode(x + 0.5 * h * k1, u, params)
+        k3 = quad_ode(x + 0.5 * h * k2, u, params)
+        k4 = quad_ode(x + h * k3, u, params)
+        x = x + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    return x
+
+
+def rollout(x0, U, dt, params: QuadParams, method: str = "euler"):
+    """Roll controls U (..., H, 4) from x0 (..., 13) with Euler (or, for any
+    other `method`, RK4) steps; returns X (..., H+1, 13)."""
+    step = euler_step if method == "euler" else rk4_step
     xs = [x0]
     for k in range(U.shape[-2]):
-        xs.append(euler_step(xs[-1], U[..., k, :], dt, params))
+        xs.append(step(xs[-1], U[..., k, :], dt, params))
     return torch.stack(xs, dim=-2)
+
+
+def mixer_matrix(params: QuadParams, dtype=torch.float64, device=None):
+    """Rotor thrusts -> [total thrust, Mx, My, Mz], (4, 4)."""
+    l2 = params.l / 2.0
+    c = params.c
+    return torch.tensor(
+        [
+            [1.0, 1.0, 1.0, 1.0],
+            [0.0, -l2, 0.0, l2],
+            [-l2, 0.0, l2, 0.0],
+            [c, -c, c, -c],
+        ],
+        dtype=dtype, device=device,
+    )
+
+
+def thrust_torque(u, params: QuadParams):
+    """[T, Mx, My, Mz] of rotor thrusts u (..., 4), for logging and actuation."""
+    return u @ mixer_matrix(params, dtype=u.dtype, device=u.device).T
 
 
 def rotor_positions(x, wing_len: float):

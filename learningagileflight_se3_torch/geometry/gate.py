@@ -1,8 +1,8 @@
 """Gate (narrow window) kinematics on tensors.
 
-Port of the parts of `learningagileflight_se3_tpu/geometry/gate.py` the
-deployment tick uses.  Corners are (..., 4, 3), ordered [top-left,
-top-right, bottom-right, bottom-left]; states are (..., 13).  The gate
+Port of `learningagileflight_se3_tpu/geometry/gate.py`.  Corners are
+(..., 4, 3), ordered [top-left, top-right, bottom-right, bottom-left];
+states are (..., 13).  The gate
 frame R_wg (world -> window) has rows [ax, ay, az] with az = [0,0,1],
 ay = normalize(cross(p1-p0, p2-p1)) and ax = cross(ay, az), deliberately
 not normalized, as in the reference.
@@ -41,8 +41,8 @@ def gate_centroid(pts):
 
 def gate_frame(pts):
     """R_wg: world -> window rotation, rows [ax, ay, az] (ax unnormalized)."""
-    az = torch.zeros_like(pts[..., 0, :])
-    az[..., 2] = 1.0
+    zero = torch.zeros_like(pts[..., 0, 0])
+    az = torch.stack([zero, zero, zero + 1.0], dim=-1)  # no host scalar: capturable in a CUDA graph
     n = torch.linalg.cross(pts[..., 1, :] - pts[..., 0, :], pts[..., 2, :] - pts[..., 1, :], dim=-1)
     ay = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
     ax = torch.linalg.cross(ay, az, dim=-1)
@@ -67,6 +67,16 @@ def rotate_y(pts, angle):
     x = ca * rel[..., 0] - sa * rel[..., 2]
     z = sa * rel[..., 0] + ca * rel[..., 2]
     return torch.stack([x, rel[..., 1], z], dim=-1) + c[..., None, :]
+
+
+def rotate_z(pts, angle):
+    """Rotate corners about the centroid in the x-y plane."""
+    c = gate_centroid(pts)
+    rel = pts - c[..., None, :]
+    ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    x = ca * rel[..., 0] - sa * rel[..., 1]
+    y = sa * rel[..., 0] + ca * rel[..., 1]
+    return torch.stack([x, y, rel[..., 2]], dim=-1) + c[..., None, :]
 
 
 def translate(pts, displacement):
@@ -101,3 +111,27 @@ def window_inputs(pts, state, final_point):
         ],
         dim=-1,
     )
+
+
+def gate_move(pts, generator, v, w, T: float = 5.0, dt: float = 0.01,
+              noise_std: float = 0.1, noise_clip: float = 0.1, noise=None):
+    """Moving-gate trajectory: per step, rotate about y by dt*w around the
+    current centroid, then translate by dt*(v + eps), eps the clipped Gaussian
+    clip(noise_std * N(0,1), +-noise_clip) of shape (..., n, 3), n = int(T/dt).
+
+    `pts` (..., 4, 3), `v` (3,) or (..., 3), `w` a number.  eps is drawn from
+    `generator` (on its device), or is `noise` where the caller made it.
+    Returns (moves (..., n+1, 4, 3), V (..., n+1, 3))."""
+    n = int(T / dt)
+    v = torch.as_tensor(v, dtype=pts.dtype, device=pts.device).expand(pts.shape[:-2] + (3,))
+    if noise is None:
+        raw = torch.randn(pts.shape[:-2] + (n, 3), generator=generator, dtype=pts.dtype,
+                          device=generator.device).to(pts.device)
+        noise = torch.clamp(noise_std * raw, -noise_clip, noise_clip)
+    angle = torch.as_tensor(w * dt, dtype=pts.dtype, device=pts.device)
+    moves, V = [pts], [v]
+    for k in range(n):
+        vel = v + noise[..., k, :]
+        moves.append(translate(rotate_y(moves[-1], angle), dt * vel))
+        V.append(vel)
+    return torch.stack(moves, dim=-3), torch.stack(V, dim=-2)

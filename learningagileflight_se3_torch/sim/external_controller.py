@@ -116,6 +116,9 @@ class ExternalSimController:
         self._final = torch.as_tensor(np.asarray(final_point, dtype=np.float64), **kw)
         self._tsolve = make_traversal_time_solver(self.model2, tol=fixed_point_tol,
                                                   accel=fixed_point_accel)
+        # the t-solver's CUDA graph is captured here, not in the first tick
+        self._tsolve.prepare(torch.zeros(13, **kw), self._final, torch.zeros((4, 3), **kw),
+                             torch.zeros(3, **kw), self.w_rot)
         self._solve = make_batched_mpc_solver(self.params, self.weights, self.solver_cfg)
         H = self.solver_cfg.horizon
         # device-resident tick carry: previous control and warm-start U

@@ -100,10 +100,21 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     return schedule
 
 
+def keyed_generator(device, *key: int) -> torch.Generator:
+    """A generator on `device` seeded from a tuple of non-negative integers."""
+    s = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(s)
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of one epoch's scenarios, seeded from (seed, epoch)."""
-    s = int(np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0] >> 1)
-    return torch.Generator(device=device).manual_seed(s)
+    return keyed_generator(device, seed, epoch)
+
+
+def init_generator(seed: int) -> torch.Generator:
+    """The CPU generator a training run initialises its network from; its key has
+    another length than any epoch's, so the streams differ."""
+    return keyed_generator("cpu", seed, 0, 0)
 
 
 def run_rl_training(seed: int, model: MLP, epochs: int = 100, batch_size: int = 128,

@@ -1,9 +1,11 @@
-"""Training-state checkpoints with `torch.save`.
+"""Checkpoints with `torch.save`.
 
-Port of `save_train_state` / `load_train_state` / `train_state_exists` of
-`learningagileflight_se3_tpu/utils/checkpoint.py` (orbax there): the model's
-and the optimizer's `state_dict`s and the epoch, so a run resumes with its
-Adam moments.  A checkpoint is a directory holding `train_state.pt`.
+Port of `learningagileflight_se3_tpu/utils/checkpoint.py` (orbax there).
+`save_params` / `load_params` keep a model alone (its `state_dict`, in a
+directory holding `params.pt`); `save_train_state` / `load_train_state` /
+`train_state_exists` keep the model's and the optimizer's `state_dict`s and
+the epoch (a directory holding `train_state.pt`), so a run resumes with its
+Adam moments.
 """
 
 from __future__ import annotations
@@ -13,15 +15,33 @@ import os
 import torch
 
 _FILE = "train_state.pt"
+_PARAMS = "params.pt"
+
+
+def _save(obj, path: str, name: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, name + ".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, os.path.join(path, name))
+
+
+def save_params(path: str, model: torch.nn.Module) -> None:
+    _save(model.state_dict(), path, _PARAMS)
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Restore the parameters saved by `save_params` into `model` in place,
+    on the model's device; returns the model."""
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(os.path.join(path, _PARAMS), map_location=device,
+                                     weights_only=True))
+    return model
 
 
 def save_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                      epoch: int) -> None:
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _FILE + ".tmp")
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "epoch": int(epoch)}, tmp)
-    os.replace(tmp, os.path.join(path, _FILE))
+    _save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+           "epoch": int(epoch)}, path, _FILE)
 
 
 def load_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> int:

@@ -3,7 +3,9 @@
 The shipped checkpoints are orbax directories that need JAX to read; the
 JAX package's `scripts/export_torch_weights.py` writes their raw arrays to
 an npz under `weights/` (keys like "params/Dense_0/kernel"), which this
-module reads without JAX.
+module reads without JAX.  The same script writes the scenarios and the gate
+noise that the JAX package's closed-loop benchmark draws for its two
+recorded seeds (`bench_scenarios`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,20 @@ WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 NN3_1_DNN2 = os.path.join(WEIGHTS_DIR, "nn3_1_dnn2.npz")
 NN_PRE_DNN1 = os.path.join(WEIGHTS_DIR, "nn_pre_dnn1.npz")    # after pretraining
 NN_DEEP_DNN1 = os.path.join(WEIGHTS_DIR, "nn_deep_dnn1.npz")  # after RL
+
+BENCH_SEEDS = (2024, 4096)
+
+
+def bench_scenarios_path(seed: int) -> str:
+    return os.path.join(WEIGHTS_DIR, f"bench_success_seed{seed}.npz")
+
+
+def bench_scenarios(path: str):
+    """(scenarios (n, 9), gate_noise (n, steps, 3)), float32 numpy: the
+    scenarios and the clipped gate velocity noise of one exported seed."""
+    with np.load(path) as z:
+        return z["scenarios"], z["gate_noise"]
+
 
 _KEY = re.compile(r"(?:^|/)Dense_(\d+)/(kernel|bias)$")
 

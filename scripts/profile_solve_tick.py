@@ -1,4 +1,5 @@
-"""Profile the PyTorch port's batched solve and deployment tick on a CUDA card.
+"""Profile the PyTorch port's batched solve, deployment tick, closed loop and
+imitation epoch on a CUDA card.
 
   - The batched solve at the bench.py point (B=2048, H=50, f32,
     SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4,
@@ -10,6 +11,15 @@
     artifacts/replay_contract.npz: one warm-up pass, one timed pass (per-tick
     host time, each tick ending in its host fetch), one pass under
     torch.profiler.
+  - The closed loop (--path closed_loop): the nn3_1 DNN2 through the 128
+    exported scenarios of seed 2024 x 500 steps at the accelerator settings
+    of scripts/torch_bench_success.py (f32, H=50, max_iters=45), timed twice,
+    with the host time of its parts (t-solver, replans, the rest) from a
+    third flight whose parts are synced; then the first 100 steps (10
+    replans) under torch.profiler.
+  - The imitation epoch (--path imitation) at the --full width (64 scenarios,
+    H=50, 10 passes, window frame, from nn_deep): 3 timed epochs' collect and
+    passes, then one epoch under torch.profiler.
 
 Each profiled run reports its wall time, the number of device operations,
 the device's busy time and busy share (a floor: the profiler's own host
@@ -18,7 +28,8 @@ overhead inflates the wall time), and the launches and device time of K1
 most device time.  Prints one line per measurement, the card's nvidia-smi
 name and power limit, then one JSON object (also written to --out).
 
-Usage: python3 scripts/profile_solve_tick.py [--reps 3] [--out FILE]
+Usage: python3 scripts/profile_solve_tick.py [--path solve,tick] [--reps 3] [--out FILE]
+       (--path: any of solve, tick, closed_loop, imitation; default solve,tick)
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ def report(what, prof):
         print(f"  {o['device_ms']:.3f} ms over {o['launches']} launches: {o['name']}", flush=True)
 
 
-def solve_part(reps):
+def solve_part(reps=3):
     B = 2048
     solve = make_batched_mpc_solver(QuadParams(), CostWeights(), BENCH_CFG)
     solve(*bench_args(0, B))
@@ -124,8 +135,108 @@ def tick_part():
                 p90_ms=float(np.percentile(ms, 90)), profiled=prof)
 
 
+def closed_loop_part():
+    from learningagileflight_se3_torch.sim import closed_loop
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config, fly, summarize
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    model2 = load_dnn2()
+    flights = []
+    for _ in range(2):
+        trace, metrics, wall = fly(model2, scen, noise, steps=500, seed=2024)
+        out = summarize(metrics, trace.solver_iters)
+        flights.append(dict(wall_s=wall, success=out["value"], strict=out["success_and_reached_2m"],
+                            diverged=out["n_diverged"]))
+        print(f"closed loop: 128 x 500 steps {wall:.3f} s (host, synced), success {out['value']:.4f}, "
+              f"replan iterations p50 {out['replan_solver_iters_p50']} p90 {out['replan_solver_iters_p90']}",
+              flush=True)
+
+    # the host time of the parts: one more flight with the t-solver and the
+    # solver wrapped in synced timers (the syncs add a little)
+    parts = {"tsolve": 0.0, "solve": 0.0}
+    calls = {"tsolve": 0, "solve": 0}
+
+    def timed(name, make):
+        def factory(*a, **kw):
+            fn = make(*a, **kw)
+
+            def wrapped(*b, **kb):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*b, **kb)
+                torch.cuda.synchronize()
+                parts[name] += time.perf_counter() - t0
+                calls[name] += 1
+                return r
+            return wrapped
+        return factory
+
+    real = closed_loop.make_traversal_time_solver, closed_loop.make_batched_mpc_solver
+    closed_loop.make_traversal_time_solver = timed("tsolve", real[0])
+    closed_loop.make_batched_mpc_solver = timed("solve", real[1])
+    try:
+        _, _, wall = fly(model2, scen, noise, steps=500, seed=2024)
+    finally:
+        closed_loop.make_traversal_time_solver, closed_loop.make_batched_mpc_solver = real
+    parts["rest"] = wall - parts["tsolve"] - parts["solve"]
+    print(f"closed loop parts (host, synced): wall {wall:.3f} s: t-solver {parts['tsolve']:.3f} s over "
+          f"{calls['tsolve']} calls, replans {parts['solve']:.3f} s over {calls['solve']} solves, the rest "
+          f"(gate, DNN2, plant, log) {parts['rest']:.3f} s", flush=True)
+
+    sim = closed_loop.make_closed_loop_sim(model2, solver_cfg=flight_solver_config(), steps=100)
+    prof = profiled_step(lambda _: sim(scen, gate_noise=noise[:, :100]), None)
+    report("closed loop, first 100 steps of 128 scenarios", prof)
+    return dict(flights=flights, parts=parts, part_calls=calls, parts_wall_s=wall, profiled_100_steps=prof)
+
+
+def imitation_part():
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.train.imitation import (
+        make_imitation_collect, make_imitation_train_step,
+    )
+    from learningagileflight_se3_torch.train.rl import epoch_generator, init_generator
+    from learningagileflight_se3_torch.models.mlp import make_dnn2
+    from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
+
+    dev = torch.device("cuda")
+    B, passes = 64, 10
+    collect = make_imitation_collect(load_dnn1(NN_DEEP_DNN1).to(dev), QuadParams(), CostWeights(),
+                                     flight_solver_config(), window_frame=True)
+    model2 = make_dnn2(generator=init_generator(0)).to(dev)
+    step = make_imitation_train_step(model2, torch.optim.Adam(model2.parameters(), lr=1e-3))
+
+    def epoch(e, times=None):
+        scen = sample_scenarios(epoch_generator(0, e, dev), B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs, labels = collect(scen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(passes):
+            step(inputs, labels)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((t1 - t0, time.perf_counter() - t1))
+
+    epoch(99)  # warm-up
+    times = []
+    for e in range(3):
+        epoch(e, times)
+        print(f"imitation epoch {e}: collect {times[-1][0] * 1e3:.1f} ms, {passes} passes "
+              f"{times[-1][1] * 1e3:.1f} ms (host, synced)", flush=True)
+    prof = profiled_step(lambda _: epoch(3), None)
+    report("imitation epoch (64 scenarios, 10 passes)", prof)
+    return dict(batch=B, passes=passes, collect_s=[t[0] for t in times], passes_s=[t[1] for t in times],
+                profiled=prof)
+
+
+PARTS = {"solve": solve_part, "tick": tick_part, "closed_loop": closed_loop_part, "imitation": imitation_part}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", default="solve,tick", help="comma-separated: " + ", ".join(PARTS))
     ap.add_argument("--reps", type=int, default=3, help="timed solves")
     ap.add_argument("--out", default=None, help="also write the JSON summary here")
     args = ap.parse_args()
@@ -136,8 +247,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-                   solve=solve_part(args.reps), tick=tick_part())
+    summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    for path in args.path.split(","):
+        if path not in PARTS:
+            ap.error(f"unknown path {path!r}")
+        summary[path] = PARTS[path](args.reps) if path == "solve" else PARTS[path]()
     print(smi)
     line = json.dumps(summary)
     print(line)

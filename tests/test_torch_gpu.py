@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA device: each hand-written kernel against its plain
 PyTorch version on the card, K3 against K2, the kernel-backed solver against
-the plain solver, and the RL learning signals on the card against the CPU.
+the plain solver, the RL learning signals, the closed loop and the imitation
+collect on the card against the CPU, and the entry points' default device.
 Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
@@ -67,15 +68,16 @@ def main_path_b(request):
     return main_path_inputs(50, request.param, device="cuda", iters=10)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_rollout_kernel_matches_plain(cuda, main_path_b, dtype):
-    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
-    args = [a.to(dtype) for a in main_path_b[0]]
+def _assert_rollout_matches_plain(args, model, dtype, **kw):
+    """K1 against its plain version on `args` in `dtype`: one launch; on the
+    lanes whose plain cost is sane (at least 95%) 1e-9 in f64 and
+    tests/test_pallas.py::TestRolloutKernel's gates in f32."""
+    args = [a.to(dtype) for a in args]
     n = rollout.launches
-    Zn, Un, c = rollout.rollout_forward(*args, P, W, C)
+    Zn, Un, c = rollout.rollout_forward(*args, *model, **kw)
     torch.cuda.synchronize()
     assert rollout.launches == n + 1
-    rZ, rU, rc = rollout.rollout_forward_plain(*args, P, W, C)
+    rZ, rU, rc = rollout.rollout_forward_plain(*args, *model, **kw)
     # lanes whose rollout blew up (the line search rejects them) are chaotic
     sane = torch.isfinite(rc) & (rc.abs() < 1e12)
     assert sane.float().mean() >= 0.95
@@ -83,20 +85,20 @@ def test_rollout_kernel_matches_plain(cuda, main_path_b, dtype):
     if dtype == torch.float64:
         for a, b in pairs:
             torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
-    else:  # tests/test_pallas.py::TestRolloutKernel's f32 gates
+    else:
         for (a, b), atol in zip(pairs, (2e-5, 2e-4, 1e-2)):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_riccati_kernel_matches_plain(cuda, main_path_b, dtype):
-    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=50)
-    args = [a.to(dtype) for a in main_path_b[1]]
+def _assert_sweep_matches_plain(args, model, dtype, **kw):
+    """K2 against its plain version on `args` in `dtype`: one launch, the
+    same lanes fail, 1e-8 in f64 and phase 3's gates in f32."""
+    args = [a.to(dtype) for a in args]
     n = riccati_fused.launches
-    out = riccati_fused.riccati_backward(*args, P, W, C)
+    out = riccati_fused.riccati_backward(*args, *model, **kw)
     torch.cuda.synchronize()
     assert riccati_fused.launches == n + 1
-    ref = riccati_fused.riccati_backward_plain(*args, P, W, C)
+    ref = riccati_fused.riccati_backward_plain(*args, *model, **kw)
     tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
             else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
     for name, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
@@ -104,6 +106,18 @@ def test_riccati_kernel_matches_plain(cuda, main_path_b, dtype):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         else:
             assert _rel_err(a, b) < tols[name], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rollout_kernel_matches_plain(cuda, main_path_b, dtype):
+    model = (QuadParams(), CostWeights(), SolverConfig(horizon=50))
+    _assert_rollout_matches_plain(main_path_b[0], model, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_riccati_kernel_matches_plain(cuda, main_path_b, dtype):
+    model = (QuadParams(), CostWeights(), SolverConfig(horizon=50))
+    _assert_sweep_matches_plain(main_path_b[1], model, dtype)
 
 
 def test_riccati_kernel_f32_matches_f64(cuda, main_path_b):
@@ -269,3 +283,143 @@ def test_learning_signal_on_card_matches_cpu(cuda, signal):
     gk, gp = gk.cpu()[both], gp[both]
     lane_ok = ((gk - gp).abs() <= 1e-8 + 1e-6 * gp.abs()).all(dim=1)
     assert float(lane_ok.float().mean()) >= (1.0 if signal == "analytic" else 0.9)
+
+
+def _assert_lanes_agree(a, b, lanes, median=1e-9, share=0.0):
+    """Of the lanes compared (at least 4) the median differs by at most
+    `median` and at least `share` of them by at most 1e-6."""
+    diff = (a.double().cpu() - b.double().cpu()).abs().reshape(a.shape[0], -1).amax(dim=1)[lanes]
+    assert diff.numel() >= 4, lanes
+    assert float(diff.median()) <= median and float((diff <= 1e-6).double().mean()) >= share, diff
+
+
+@pytest.mark.parametrize("solve", [0, 1], ids=["cold", "warm"])
+def test_kernels_match_plain_on_closed_loop_inputs(cuda, solve):
+    """K1 and K2 against their plain versions on the inputs the flight gives
+    them: the 128 exported scenarios of seed 2024 in f32 at the flight's
+    solver settings, the 10th DDP iteration of the cold first replan and of
+    the warm-started second one (a solve's first sweeps fail until the
+    regularisation has grown); in f32 and on the same inputs in f64, the
+    gates of the main-path tests."""
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.solver.watch import capture_inputs
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=11, device="cuda")
+    _, got = capture_inputs(lambda: sim(scen, gate_noise=noise[:, :11]), solve=solve, k2_call=10)
+    (k1, k1_model, k1_kw), (k2, k2_model, k2_kw) = got["K1"], got["K2"]
+    assert k2[0].shape == (50, 21, 128) and k2[0].dtype == torch.float32 and k2[0].is_cuda
+    for dtype in (torch.float64, torch.float32):
+        _assert_rollout_matches_plain(k1, k1_model, dtype, **k1_kw)
+        _assert_sweep_matches_plain(k2, k2_model, dtype, **k2_kw)
+
+
+def test_closed_loop_on_card_matches_cpu(cuda):
+    """16 exported scenarios x 30 steps (3 replans at H=50) in f64 at the
+    flight's solver settings: the kernel path's states against the plain
+    path's.  The two paths agree to about 1e-12 a kernel call and differ by
+    rounding within a solve; a line-search or exit test that is nearly a tie
+    then falls differently, and from there the paths part for good, so not
+    every lane can agree (what holds the kernels on this path is
+    test_kernels_match_plain_on_closed_loop_inputs; chip_smoke.py phase 9
+    finds the call at which a lane parts and holds the kernels there).  The
+    lanes whose every replan took the same number of iterations on both
+    paths: their median within 1e-9 after the first replan and within 1e-6
+    over the 30 steps; and of all 16 lanes at least 8 within 1e-6."""
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    logs = {}
+    for dev in ("cuda", "cpu"):
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=30, device=dev,
+                                   dtype=torch.float64)
+        n = (rollout.launches, riccati_fused.launches)
+        logs[dev] = sim(scen[:16], gate_noise=noise[:16, :30])
+        launched = rollout.launches > n[0] and riccati_fused.launches > n[1]
+        assert launched == (dev == "cuda")
+    on_card, on_cpu = logs["cuda"], logs["cpu"]
+    assert on_card.states.device.type == "cuda"
+    assert torch.isfinite(on_cpu.states).all() and torch.isfinite(on_card.states).all()
+    assert torch.equal((on_card.solver_iters > 0).cpu(), on_cpu.solver_iters > 0)
+    for upto, median in ((10, 1e-9), (30, 1e-6)):
+        same = (on_card.solver_iters.cpu()[:, :upto] == on_cpu.solver_iters[:, :upto]).all(dim=1)
+        _assert_lanes_agree(on_card.states[:, :upto + 1], on_cpu.states[:, :upto + 1], same, median)
+        _assert_lanes_agree(on_card.tra_times[:, :upto], on_cpu.tra_times[:, :upto], same, median)
+        diff = (on_card.states.cpu() - on_cpu.states)[:, :upto + 1].abs().amax(dim=(1, 2))
+        assert int((diff <= 1e-6).sum()) >= 8, diff
+
+
+@pytest.mark.parametrize("accel", ["reference", "secant"])
+def test_tsolver_on_card_matches_cpu(cuda, accel):
+    """On the card the t-solver replays each DNN2 evaluation as a CUDA graph
+    over static buffers; it gives the CPU's (eager) times in f64 (1e-9) and
+    f32 (1e-3: the fixed point's own tolerance), for a batch and for one
+    problem, with the pitch rate a number or a tensor, and again when a
+    second call of the same shape replays the first call's graph."""
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+    from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
+    from learningagileflight_se3_torch.utils.weights import load_dnn2
+
+    for dtype, atol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        solvers = {dev: make_traversal_time_solver(load_dnn2().to(device=dev, dtype=dtype), accel=accel)
+                   for dev in ("cuda", "cpu")}
+        prob = scenario_to_problem(sample_scenarios(torch.Generator().manual_seed(3), 64, dtype=dtype))
+        velo = torch.tensor([1.0, 0.3, 0.4], dtype=dtype).expand(64, 3)
+        with torch.no_grad():
+            for w in (1.5707963, torch.full((64,), 1.2, dtype=dtype)):
+                for shift in (0.0, 2.0):
+                    x0 = prob["x0"].clone()
+                    x0[:, 1] += shift
+                    args = (x0, prob["goal_pos"], prob["gate_pts"], velo, w)
+                    on_card = solvers["cuda"](*[a.cuda() if isinstance(a, torch.Tensor) else a for a in args])
+                    assert on_card.is_cuda and on_card.shape == (64,)
+                    torch.testing.assert_close(on_card.cpu(), solvers["cpu"](*args), rtol=0, atol=atol)
+            one = [a[5] if isinstance(a, torch.Tensor) else a for a in args]
+            on_card = solvers["cuda"](*[a.cuda() if isinstance(a, torch.Tensor) else a for a in one])
+            torch.testing.assert_close(on_card.cpu(), solvers["cpu"](*one), rtol=0, atol=atol)
+
+
+def test_imitation_collect_on_card_matches_cpu(cuda):
+    """The collect of 32 teacher solves (H=20, window frame, f64, tol=1e-9,
+    gtol=1e-7, 80 iterations): inputs and labels on the lanes both paths call
+    converged, median within 1e-9 and 90% within 1e-6."""
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios
+    from learningagileflight_se3_torch.train.imitation import make_imitation_collect
+    from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
+
+    cfg = SolverConfig(horizon=20, max_iters=80, tol=1e-9, gtol=1e-7)
+    scen = sample_scenarios(torch.Generator().manual_seed(9), 32, dtype=torch.float64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        collect = make_imitation_collect(load_dnn1(NN_DEEP_DNN1).to(dev), QuadParams(), CostWeights(), cfg,
+                                         window_frame=True)
+        out[dev] = collect(scen.to(dev), with_solution=True)
+    both = out["cuda"][2].converged.cpu() & out["cpu"][2].converged
+    for k in (0, 1):
+        _assert_lanes_agree(out["cuda"][k].reshape(32, -1), out["cpu"][k].reshape(32, -1), both, share=0.9)
+
+
+def test_new_entry_points_run_on_the_card_by_default(cuda):
+    """run_pretraining, run_imitation_training and make_closed_loop_sim with
+    no `device` argument work on the card."""
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.train.imitation import run_imitation_training
+    from learningagileflight_se3_torch.train.pretrain import run_pretraining
+    from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1, load_dnn2
+
+    quiet = lambda *_: None
+    model1, losses = run_pretraining(0, steps=4, batch_size=8, log_every=2, log_fn=quiet)
+    assert next(model1.parameters()).device.type == "cuda" and len(losses) == 2
+    cfg = SolverConfig(horizon=10, max_iters=8)
+    n = (rollout.launches, riccati_fused.launches)
+    model2, imi = run_imitation_training(0, load_dnn1(NN_DEEP_DNN1), epochs=1, batch_scenarios=4,
+                                         sgd_passes=2, lr=1e-3, solver_cfg=cfg, log_fn=quiet)
+    assert next(model2.parameters()).device.type == "cuda" and len(imi) == 1 and np.isfinite(imi[0])
+    log = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=20)(
+        np.array([[0.0, -8.0, 0.0, 0.0, 6.0, 0.0, 0.05, 1.0, 0.4]]), generator=torch.Generator("cuda").manual_seed(0))
+    assert log.states.device.type == "cuda" and log.states.dtype == torch.float32
+    assert rollout.launches > n[0] and riccati_fused.launches > n[1]

@@ -195,9 +195,13 @@ def test_replay_contract_through_the_port():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """ExternalSimController and run_rl_training run on the card unless given
-    device="cpu": without a card their default raises before any work, and
-    nothing runs on the CPU in its place."""
+    """ExternalSimController, run_rl_training, run_pretraining,
+    run_imitation_training and make_closed_loop_sim run on the card unless
+    given device="cpu": without a card their default raises before any work,
+    and nothing runs on the CPU in its place."""
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.train.imitation import run_imitation_training
+    from learningagileflight_se3_torch.train.pretrain import run_pretraining
     from learningagileflight_se3_torch.train.rl import run_rl_training
     from learningagileflight_se3_torch.utils.weights import load_dnn1
 
@@ -208,8 +212,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
                               gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)), w_rot=0.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_rl_training(0, load_dnn1(), epochs=1, batch_size=2, log_fn=lambda *a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_pretraining(0, steps=1, batch_size=2, log_fn=lambda *a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_imitation_training(0, load_dnn1(), epochs=1, batch_scenarios=2, log_fn=lambda *a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_closed_loop_sim(load_dnn2())
     assert (rollout.plain_calls, riccati_fused.plain_calls) == plain
     ctrl = ExternalSimController(load_dnn2(), final_point=np.zeros(3),
                                  gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)),
                                  w_rot=0.0, device="cpu")
     assert ctrl.device == torch.device("cpu")
+    sim = make_closed_loop_sim(load_dnn2(), solver_cfg=SolverConfig(horizon=4, max_iters=2), steps=1,
+                               device="cpu")
+    assert sim(np.zeros((1, 9)) + [0, -8, 0, 0, 6, 0, 0, 1, 0.3], generator=torch.Generator()).states.device.type == "cpu"
