@@ -4,9 +4,10 @@ Builds the hand-written kernels from learningagileflight_se3_torch/csrc/,
 holds each against its plain PyTorch version on the card, drives the
 batched solver at the bench.py operating point, the 10 Hz deployment tick,
 stage-2 RL training of DNN1, the batched 100 Hz closed-loop flight that
-scores the shipped DNN2, and stages 1 and 3 (pretraining, imitation), and
-fails (non-zero exit, no result line) if any phase fails or if there is no
-CUDA device.  Imports nothing of JAX.
+scores the shipped DNN2, stages 1 and 3 (pretraining, imitation), and the
+side paths (the validation flight, the omega-box continuation, the policy
+searches, the costates), and fails (non-zero exit, no result line) if any
+phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
@@ -74,6 +75,25 @@ Phases, each printing its numbers on lines of its own:
              at tol=1e-9, gtol=1e-7 (inputs and labels on the lanes both call
              converged: at least 8 lanes, median within 1e-9, 90% within
              1e-6), the CPU side again in a process of its own
+  11 side paths  (a) the shipped DNN2 through run_validation_sim at its
+             defaults (5 s, 100 Hz float64 plant, 10 Hz tick, f64) for seeds
+             0-3: through_gate, gate_margin, final_distance, wall time, tick
+             p50 / p90, K1 / K2 launches; then the first 0.3 s of seed 0 on
+             the card against the CPU plain path in f64 (its own process),
+             the first tick's action gated at 1e-9; (b) the omega-box
+             continuation (the default ladder 10 .. 1e6) on the flagship
+             scenario of tests/test_oracle_lifted.py at H=50, max_iters=300,
+             in f64 and f32, each stage's cost and omega violation (f64: never
+             growing along the ladder), the status histograms of 64 seeded
+             scenarios in f32 and f64 (f64: median violation at rho = 1e6
+             under 1e-3), and K1 / K2 against their plain versions on the
+             rho = 1e6 stage's inputs of those 64 (f64: K2 within the larger
+             of phase 3's gates and 10 times the plain version's own change
+             under 1e-15 input noise, K1 on the lanes whose sweep did not
+             fail; f32 K2 printed, not gated; with their times); (c) the
+             policy search (20 iterations) and the LSFD search (5) at H=50 on
+             one scenario with their launches; (d) both costate options on
+             the policy search's final solution
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of phase 4's solve, the main path, `launches_by_path` each path's
@@ -86,13 +106,14 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --phases 9,10   (phases 1 and 2 and the named ones only: a
                                               developer's partial run checks them and prints no
                                               result lines)
-       python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9 and 10 start
+       python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9, 10 and 11 start
                                               for the CPU side of their comparisons)
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -157,6 +178,9 @@ INPUT_ITERS = 10
 # and phase 10 run beside them, and their times say so.  CMP_STEPS closed-loop
 # steps are 3 replans, one cold and two warm.
 CMP_LANES, CMP_STEPS, CMP_COLLECT = 16, 30, 64
+# Phase 11 compares the first 0.3 s (3 ticks) of a validation flight on the
+# card with the CPU plain path in f64, in a process of its own as well
+VAL_CMP_S = 0.3
 PLAIN_SIDE_TIMEOUT_S = 600
 PARTED = 1e-9  # two paths' records of one call differ by more: they have parted
 
@@ -288,7 +312,22 @@ def compared_collect(device):
                 seconds=time.perf_counter() - t0)
 
 
-PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect}
+def compared_validation(device):
+    """The first VAL_CMP_S seconds of seed 0's validation flight (the shipped
+    DNN2, f64) on `device`: the plant's states and the ticks' actions as
+    CPU tensors, and the seconds it took."""
+    from learningagileflight_se3_torch.sim.validation_sim import ValidationSimConfig, run_validation_sim
+    from learningagileflight_se3_torch.utils.weights import load_dnn2
+
+    t0 = time.perf_counter()
+    out = run_validation_sim(load_dnn2(), ValidationSimConfig(duration_sec=VAL_CMP_S), seed=0, device=device)
+    _, _, actions, _ = out["logger"].arrays()
+    return dict(states=torch.from_numpy(out["states"]), actions=torch.from_numpy(actions),
+                seconds=time.perf_counter() - t0)
+
+
+PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect,
+               "validation": compared_validation}
 
 
 def reset_launches():
@@ -438,7 +477,7 @@ class Smoke:
                         self.kernels[k] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                                bound_by=b_by, library_ms=None)
 
-    def check_rollout(self, what, out, ref, dtype):
+    def check_rollout(self, what, out, ref, dtype, min_sane=0.95):
         """Hold K1's outputs (Zn, Un, cost) against its plain version's, on
         the lanes whose plain cost is sane (|J| < 1e12; the others are
         rollouts that blew up, which the line search rejects), at least 95%
@@ -446,7 +485,7 @@ class Smoke:
         cost rtol 1e-4 in f32.  Returns the max abs errors."""
         sane = torch.isfinite(ref[2]) & (ref[2].abs() < 1e12)
         n_sane = f"{int(sane.sum())} of {sane.numel()} lanes sane"
-        self.check(bool(sane.float().mean() >= 0.95), f"{what}: {n_sane}, fewer than 95%")
+        self.check(bool(sane.float().mean() >= min_sane - 1e-12), f"{what}: {n_sane}, fewer than {min_sane:.1%}")
         if not bool(sane.any()):
             return [float("inf")] * 3
         out_s = [a[..., sane] for a in out]
@@ -466,13 +505,13 @@ class Smoke:
                 f"cost rtol 1e-4)")
         return errs
 
-    def check_sweep(self, what, out, ref, dtype):
+    def check_sweep(self, what, out, ref, dtype, tols=None):
         """Hold a backward sweep's outputs (kk, KK, dV1, dV2, fail, pg)
         against a reference: relative error (rel_err) under K2's gates, 1e-8
         in f64, kk 5e-3 / KK 8e-3 / dV 1e-3 / pg 1e-4 in f32, and identical
         fail and NaN patterns.  Returns the max abs errors."""
-        tols = (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
-                else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
+        tols = tols or (dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8) if dtype == torch.float64
+                        else dict(kk=5e-3, KK=8e-3, dV1=1e-3, dV2=1e-3, pg=1e-4))
         parts, errs = [], []
         for nm, a, b in zip(["kk", "KK", "dV1", "dV2", "fail", "pg"], out, ref):
             if nm == "fail":
@@ -1249,6 +1288,249 @@ class Smoke:
             f"{kernel['seconds']:.2f} s, CPU {plain['seconds']:.2f} s in a process of its own ({waited:.1f} s "
             f"waited for); on the lanes converged in both, inputs {text_in}; labels {text_lab}")
 
+    # ------------------------------------------------------ 11 side paths
+    def side_paths(self):
+        self.start_plain_side("validation")
+        self._validation_flights()
+        self._continuation()
+        self._searches_and_costates()
+        self._validation_against_cpu()
+
+    def _validation_flights(self):
+        """(a) The shipped DNN2 through run_validation_sim at its defaults (5 s,
+        100 Hz plant, 10 Hz tick, f64) for 4 seeds."""
+        from learningagileflight_se3_torch.sim.validation_sim import ValidationSimConfig, run_validation_sim
+        from learningagileflight_se3_torch.utils.weights import load_dnn2
+
+        model2 = load_dnn2()
+        for seed in range(4):
+            plain0 = read_plain_calls()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run_validation_sim(model2, ValidationSimConfig(), seed=seed, device="cuda")
+            wall = time.perf_counter() - t0
+            n = read_launches()
+            self.path_launches.setdefault("validation", n)  # seed 0's flight
+            ticks = np.asarray(out["tick_s"]) * 1e3
+            log(f"validation flight, seed {seed}: through_gate {out['through_gate']}, gate_margin "
+                f"{out['gate_margin']:.4f} m, final_distance {out['final_distance']:.4f} m; {wall:.2f} s wall "
+                f"(host), {ticks.size} ticks p50 {np.percentile(ticks, 50):.1f} ms p90 "
+                f"{np.percentile(ticks, 90):.1f} ms; launches K1 {n['K1']} K2 {n['K2']} [{self.smi}]")
+            self.check(out["states"].shape == (500, 13) and bool(np.isfinite(out["states"]).all()),
+                       f"phase 11 validation seed {seed}: states misshapen or not finite")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 11 validation seed {seed}: kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 11 validation seed {seed} moved a plain-version counter")
+
+    def _validation_against_cpu(self):
+        """(a, end) The first VAL_CMP_S s of seed 0 on the card against the CPU
+        plain path, both f64: the first tick's action within 1e-9; the
+        largest state difference is printed (a tied decision in a later
+        solve can part the paths, as phase 9 found)."""
+        card = compared_validation("cuda")
+        cpu, waited = self.plain_side("validation")
+        d_state = (card["states"] - cpu["states"]).abs().amax(dim=1).numpy()
+        d_act = (card["actions"] - cpu["actions"]).abs().amax(dim=1).numpy()
+        ticks = d_act[:: int(100 * 0.1)]
+        log(f"validation flight, seed 0, first {VAL_CMP_S} s, card against CPU plain path (f64): first tick's "
+            f"action {d_act[0]:.3e} (gate 1e-9), the ticks' actions {', '.join(f'{x:.3e}' for x in ticks)}; "
+            f"largest state difference {d_state.max():.3e} (after 0.1 / 0.2 / 0.3 s: "
+            f"{d_state[9]:.3e} / {d_state[19]:.3e} / {d_state[-1]:.3e}); card {card['seconds']:.2f} s, "
+            f"CPU {cpu['seconds']:.2f} s ({waited:.1f} s waited for) [{self.smi}]")
+        self.check(d_act[0] <= 1e-9, f"phase 11 validation: first tick's action differs by {d_act[0]:.3e}")
+        self.check(bool(torch.isfinite(cpu["states"]).all()), "phase 11 validation: CPU states not finite")
+
+    def _continuation(self):
+        """(b) The omega-box penalty continuation: the flagship scenario of
+        tests/test_oracle_lifted.py at H=50 in f64 and f32, then K1 and K2
+        against their plain versions on the rho = 1e6 stage's inputs of 64
+        seeded scenarios."""
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
+        from learningagileflight_se3_torch.core.rotations import axis_angle_to_quat
+        from learningagileflight_se3_torch.ops.inputs import bench_problems
+        from learningagileflight_se3_torch.solver.constrained import DEFAULT_LADDER, make_w_bounded_solver
+        from learningagileflight_se3_torch.solver.watch import capture_inputs
+
+        cfg = SolverConfig(horizon=50, max_iters=300)
+        solve = make_w_bounded_solver(QuadParams(), CostWeights(), cfg)
+        viol = lambda X: torch.clamp_min(X[..., 10:13].abs() - cfg.w_bound, 0.0).amax(dim=(-2, -1))
+        for dtype in (torch.float64, torch.float32):
+            name = "f64" if dtype == torch.float64 else "f32"
+            kw = dict(dtype=dtype, device="cuda")
+            x0 = torch.zeros((1, 13), **kw)
+            x0[0, 1] = -8.0
+            x0[0, 6:10] = axis_angle_to_quat(torch.tensor(0.0, **kw), torch.tensor([3.0, 3.0, 5.0], **kw))
+            args = (x0, torch.zeros((1, 4), **kw), torch.tensor([[0.0, 8.0, 0.0]], **kw),
+                    torch.zeros((1, 3), **kw), torch.tensor([[0.0, 0.6, 0.0]], **kw), torch.tensor([3.0], **kw))
+            plain0 = read_plain_calls()
+            reset_launches()
+            t0 = time.perf_counter()
+            sols = solve(*args, all_stages=True)
+            stages = [(float(sol.cost[0]), float(viol(sol.state_traj)[0]), int(sol.iterations[0]),
+                       int(sol.status[0])) for sol in sols]
+            wall = time.perf_counter() - t0
+            n = read_launches()
+            if dtype == torch.float64:
+                self.path_launches["continuation"] = n
+            log(f"continuation, flagship, H=50, {name}: " + "; ".join(
+                f"rho {rho:.0e}: cost {c:.6f}, max |omega| - pi/2 {v:.3e}, {it} iterations, status {st}"
+                for rho, (c, v, it, st) in zip(DEFAULT_LADDER, stages))
+                + f"; {wall:.2f} s, launches K1 {n['K1']} K2 {n['K2']} [{self.smi}]")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 11 continuation {name}: kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 11 continuation {name} moved a plain-version counter")
+            self.check(bool(torch.isfinite(sols[-1].control_traj).all()),
+                       f"phase 11 continuation {name}: last stage's controls not finite")
+            if dtype == torch.float64:
+                # every stage from the second on stops at the 300-iteration cap
+                # (the JAX package's too), so where the last one ends depends
+                # on the path the rounding takes: the JAX single solver and the
+                # port's plain path on the CPU end under the JAX slow test's
+                # bound of 1e-3, the card's path can end over it, its kernels
+                # and its plain versions alike (scripts/continuation_paths.py).
+                # Gated here: the ladder never loosens the box; the median of
+                # the 64 scenarios below is gated under 1e-3
+                viols = [v for _, v, _, _ in stages]
+                log(f"continuation, flagship, f64: last stage's violation {viols[-1]:.3e} "
+                    f"({'under' if viols[-1] < 1e-3 else 'over'} the JAX slow test's bound of 1e-3)")
+                self.check(all(b <= a * (1 + 1e-9) for a, b in zip(viols, viols[1:])),
+                           f"phase 11 continuation f64: the violation grew along the ladder {viols}")
+        # 64 seeded scenarios at 100 iterations a stage: every stage in f32 and
+        # f64, and the kernels on the f64 run's inputs of the rho = 1e6 stage
+        batch = make_w_bounded_solver(QuadParams(), CostWeights(), dataclasses.replace(cfg, max_iters=100))
+        got = None
+        for dtype in (torch.float32, torch.float64):
+            args = bench_problems(64, "cuda", seed=11, dtype=dtype)
+            t0 = time.perf_counter()
+            if dtype == torch.float64:
+                sols, got = capture_inputs(lambda: batch(*args, all_stages=True), solve=len(DEFAULT_LADDER) - 1,
+                                           k2_call=INPUT_ITERS)
+            else:
+                sols = batch(*args, all_stages=True)
+            status = [torch.bincount(sol.status.long(), minlength=5).tolist() for sol in sols]
+            median = float(viol(sols[-1].state_traj).median())
+            if dtype == torch.float64:
+                self.check(median < 1e-3, f"phase 11 continuation, 64 scenarios, f64: median violation {median:.3e} "
+                                          f">= 1e-3")
+            log(f"continuation, 64 scenarios, H=50, max_iters=100, {'f64' if dtype == torch.float64 else 'f32'}: "
+                + "; ".join(f"rho {rho:.0e}: status histogram {st}, violation median "
+                            f"{float(viol(sol.state_traj).median()):.3e} max {float(viol(sol.state_traj).max()):.3e}"
+                            for rho, st, sol in zip(DEFAULT_LADDER, status, sols))
+                + f"; {time.perf_counter() - t0:.2f} s [{self.smi}]")
+        self._kernels_on_continuation(got)
+
+    def _kernels_on_continuation(self, got):
+        """K1 and K2 against their plain versions on the inputs of the
+        continuation's last stage (rho = 1e6).  There the penalty's Hessian
+        term (2e6) sits beside weights of order 1 and the sweep is
+        ill-conditioned: the plain version itself moves by up to about 1e-6
+        relative when its inputs move by 1e-15 (ops/inputs.py perturbed).
+        So in f64 each K2 output is held to the larger
+        of phase 3's gate and 10 times that spread, with equal fail and NaN
+        patterns (phase 3's own gates are printed beside it), and K1 to phase
+        3's gates on the lanes whose sweep did not fail (a failed sweep's
+        gains are NaN; the line search rejects its trial rollout).  In f32
+        the sweep fails on most lanes at this stage: K2 is printed, not
+        gated, there; K1 keeps its gates."""
+        from learningagileflight_se3_torch.ops import riccati_fused, rollout
+        from learningagileflight_se3_torch.ops.inputs import perturbed
+
+        if not self.check("K1" in got and "K2" in got, "phase 11 continuation: K1 / K2 inputs not captured"):
+            return
+        (k1, k1_args, k1_kw), (k2, k2_args, k2_kw) = got["K1"], got["K2"]
+        H, _, B = k2[0].shape
+        where = f"continuation, rho 1e6, H={H}, B={B}"
+        names = ["kk", "KK", "dV1", "dV2", "fail", "pg"]
+        phase3 = dict(kk=1e-8, KK=1e-8, dV1=1e-8, dV2=1e-8, pg=1e-8)
+        sweep = lambda a: riccati_fused.riccati_backward(*a, *k2_args, **k2_kw)
+        sweep_plain = lambda a: riccati_fused.riccati_backward_plain(*a, *k2_args, **k2_kw)
+        ref = sweep_plain(k2)
+        spread = {nm: rel_err(a, b)[0] for nm, a, b in zip(names, sweep_plain(perturbed(k2)), ref) if nm != "fail"}
+        out = sweep(k2)
+        torch.cuda.synchronize()
+        errs = {nm: rel_err(a, b)[0] for nm, a, b in zip(names, out, ref) if nm != "fail"}
+        log(f"K2 f64 ({where}): the plain version's rel change under 1e-15 input noise "
+            + ", ".join(f"{nm} {v:.3e}" for nm, v in spread.items()) + "; phase 3's 1e-8 gate "
+            + ", ".join(f"{nm} {'held' if errs[nm] < phase3[nm] else 'missed'}" for nm in errs))
+        self.check_sweep(f"K2 f64 ({where})", out, ref, torch.float64,
+                         tols={nm: max(phase3[nm], 10.0 * spread[nm]) for nm in spread})
+        swept = float((~ref[4]).double().mean())
+        for dtype in (torch.float64, torch.float32):
+            name = "f64" if dtype == torch.float64 else "f32"
+            a1 = [x.to(dtype) for x in k1]
+            out1 = rollout.rollout_forward(*a1, *k1_args, **k1_kw)
+            torch.cuda.synchronize()
+            self.check_rollout(f"K1 {name} ({where}; {swept:.1%} of lanes swept without failing)", out1,
+                               rollout.rollout_forward_plain(*a1, *k1_args, **k1_kw), dtype, min_sane=swept)
+        a2 = [x.float() for x in k2]
+        out, ref32 = sweep(a2), sweep_plain(a2)
+        torch.cuda.synchronize()
+        parts = [f"{nm} {rel_err(a, b)[0]:.3e} (NaN pattern equal {rel_err(a, b)[1]})"
+                 for nm, a, b in zip(names, out, ref32) if nm != "fail"]
+        log(f"K2 f32 ({where}), not gated: rel err " + ", ".join(parts)
+            + f"; fail equal {bool((out[4] == ref32[4]).all())} ({int(ref32[4].sum())} of {B} lanes fail)")
+        a1 = [x.float() for x in k1]
+        ms = [median_ms(lambda: rollout.rollout_forward(*a1, *k1_args, **k1_kw), card_only=True),
+              median_ms(lambda: rollout.rollout_forward_plain(*a1, *k1_args, **k1_kw), n=5),
+              median_ms(lambda: sweep(a2), card_only=True), median_ms(lambda: sweep_plain(a2), n=5)]
+        log(f"f32 time ({where}): K1 kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms; K2 kernel {ms[2]:.4f} ms, "
+            f"plain {ms[3]:.4f} ms (kernel: the card's time, median of {N_TIMED}; plain: median of 5) [{self.smi}]")
+
+    def _searches_and_costates(self):
+        """(c) The two policy searches on one scenario at H=50 (f64), (d) both
+        costate options on the policy search's final solution."""
+        from learningagileflight_se3_torch.config import (
+            CostWeights, LearnedGradConfig, QuadParams, RewardConfig, SolverConfig,
+        )
+        from learningagileflight_se3_torch.geometry.gate import gate_from_width
+        from learningagileflight_se3_torch.policy import make_lsfd_search, make_objective, make_policy_search
+        from learningagileflight_se3_torch.solver.costate import make_costate_extractor
+
+        P, W, R = QuadParams(), CostWeights(), RewardConfig()
+        cfg = SolverConfig(horizon=50, max_iters=40)
+        kw = dict(dtype=torch.float64, device="cuda")
+        # tests/test_costate_policy_search.py's scenario
+        x0 = torch.zeros(13, **kw)
+        x0[0:3] = torch.tensor([0.5, -6.0, 0.2], **kw)
+        x0[6] = 1.0
+        u_last, goal = torch.zeros(4, **kw), torch.tensor([0.0, 6.0, 0.0], **kw)
+        pts = gate_from_width(torch.tensor(0.9, **kw), torch.tensor(0.45, **kw))
+        searches = [("policy search", make_policy_search(P, W, cfg, R, LearnedGradConfig(), iters=20), {}),
+                    ("LSFD search", make_lsfd_search(P, W, cfg, R, iters=5),
+                     dict(generator=torch.Generator(device="cuda").manual_seed(0)))]
+        results = {}
+        for name, search, extra in searches:
+            plain0 = read_plain_calls()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = search(x0, u_last, goal, pts, torch.zeros(3, **kw), 1.5, **extra)
+            hist = res.reward_hist.cpu().numpy()
+            wall = time.perf_counter() - t0
+            n = read_launches()
+            self.path_launches["policy_search" if name == "policy search" else "lsfd_search"] = n
+            results[name] = res
+            t = float(res.t)
+            log(f"{name}, H=50, f64, {hist.size} iterations: reward {hist[0]:.4f} -> {hist[-1]:.4f} "
+                f"(history {', '.join(f'{x:.4f}' for x in hist)}), t {t:.4f}, tra_pos "
+                f"{res.tra_pos.cpu().numpy().round(4).tolist()}, tra_ang {res.tra_ang.cpu().numpy().round(4).tolist()}; "
+                f"{wall:.2f} s, launches K1 {n['K1']} K2 {n['K2']} [{self.smi}]")
+            self.check(bool(np.isfinite(hist).all()), f"phase 11 {name}: reward history not finite")
+            self.check(abs(t * 10 - round(t * 10)) < 1e-9, f"phase 11 {name}: t {t} off the 0.1 s grid")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 11 {name}: kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 11 {name} moved a plain-version counter")
+        hist = results["policy search"].reward_hist.cpu().numpy()
+        self.check(hist[-1] >= hist[0] - 1e-6, f"phase 11 policy search: reward fell {hist[0]} -> {hist[-1]}")
+
+        res = results["policy search"]
+        sol = make_objective(P, W, cfg, R)(x0[None], u_last[None], goal[None], pts[None], res.tra_pos[None],
+                                           res.tra_ang[None], res.t[None])
+        for option in (0, 1):
+            lam = make_costate_extractor(P, W, cfg, option)(sol.state_traj[0], sol.control_traj[0], goal,
+                                                            res.tra_pos, res.tra_ang, res.t)
+            ok = lam.shape == (50, 13) and bool(torch.isfinite(lam).all())
+            log(f"costates, option {option}, on the policy search's final solution: shape {tuple(lam.shape)}, "
+                f"finite {bool(torch.isfinite(lam).all())}, max |lam| {float(lam.abs().max()):.4e}, "
+                f"row H-1 (dphi/dx) norm {float(lam[-1].norm()):.4e}")
+            self.check(ok, f"phase 11 costates option {option}: misshapen or not finite")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1263,7 +1545,7 @@ def main():
                     help="a developer's switch: comma-separated phase numbers for a partial run, which "
                          "prints no result lines")
     ap.add_argument("--plain-side", choices=sorted(PLAIN_SIDES), default=None,
-                    help="run one comparison's plain path on the CPU and save it to --out (phases 9 and 10 "
+                    help="run one comparison's plain path on the CPU and save it to --out (phases 9, 10 and 11 "
                          "start this in a process of its own)")
     ap.add_argument("--out", default=None, help="the result file of --plain-side")
     args = ap.parse_args()
@@ -1285,7 +1567,8 @@ def drive(s, only):
     phases = [("1 device", s.device), ("2 build", s.build), ("3 kernels", s.kernels_vs_plain),
               ("4 solve", s.solve), ("5 paths", s.paths), ("6 tick", s.tick), ("7 K3", s.k3),
               ("8 train", s.train), ("9 closed loop", s.closed_loop), ("10 stages", s.stages),
-              # after phase 10, so that its CPU side has had the time it needs
+              ("11 side paths", s.side_paths),
+              # after phases 10 and 11, so that its CPU side has had the time it needs
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:

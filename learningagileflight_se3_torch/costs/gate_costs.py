@@ -23,19 +23,22 @@ def attitude_error(q, q_goal):
     return 3.0 - torch.sum(Rg * Rq, dim=(-2, -1))
 
 
-def goal_cost(x, goal_pos, w: CostWeights):
-    """Path / final goal cost (zero goal velocity; identity goal attitude
-    when wqf is on)."""
+def goal_cost(x, goal_pos, w: CostWeights, goal_q=None, goal_vel=None):
+    """Path / final goal cost: wrf|r - goal_pos|^2 + wvf|v - goal_vel|^2 +
+    wwf|w|^2, plus wqf tr(I - R(goal_q)^T R(q)) when wqf is on.  goal_vel
+    defaults to zero and goal_q to the identity attitude."""
     r, v, q, om = x[..., 0:3], x[..., 3:6], x[..., 6:10], x[..., 10:13]
+    dv = v if goal_vel is None else v - goal_vel
     c = (
         w.wrf * torch.sum((r - goal_pos) ** 2, dim=-1)
-        + w.wvf * torch.sum(v**2, dim=-1)
+        + w.wvf * torch.sum(dv**2, dim=-1)
         + w.wwf * torch.sum(om**2, dim=-1)
     )
     if w.wqf != 0.0:
-        gq = torch.zeros_like(q)
-        gq[..., 0] = 1.0
-        c = c + w.wqf * attitude_error(q, gq)
+        if goal_q is None:
+            goal_q = torch.zeros_like(q)
+            goal_q[..., 0] = 1.0
+        c = c + w.wqf * attitude_error(q, goal_q)
     return c
 
 

@@ -94,10 +94,53 @@ def with_failing_lanes(derivs, lanes, lb: float, ub: float):
     return [A, Bm, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg]
 
 
+def perturbed(tensors, rel: float = 1e-15, seed: int = 0):
+    """Each tensor times (1 + rel * N(0,1)), elementwise, from a CPU generator
+    seeded with `seed`: inputs a rounding error away from the given ones.  A
+    kernel and its plain version order their arithmetic differently; where
+    a function is ill-conditioned, the plain version's own change under
+    such a perturbation says how far apart the two may fairly be."""
+    g = torch.Generator().manual_seed(seed)
+    return [x * (1.0 + rel * torch.randn(x.shape, generator=g, dtype=torch.float64).to(x))
+            for x in tensors]
+
+
 def as_tensors(arrays, dtype=torch.float64, device="cpu"):
     """Contiguous tensors of the given dtype on `device`."""
     return [torch.tensor(np.ascontiguousarray(a, np.float64), dtype=dtype, device=device)
             for a in arrays]
+
+
+def bench_problems(B: int, device="cpu", seed: int = 0, dtype=torch.float64):
+    """(x0, u_last, goal, tra_pos, tra_ang, t) of B bench.py-style scenarios
+    from the sampler (a CPU generator seeded with `seed`), on `device`:
+    zero tra_pos and u_last, pitch-only tra_ang, t = |x0| / 4 in [2, 4]."""
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+
+    kw = dict(dtype=dtype, device=device)
+    scen = sample_scenarios(torch.Generator().manual_seed(seed), B, dtype=torch.float64).to(**kw)
+    prob = scenario_to_problem(scen)
+    x0, goal = prob["x0"], prob["goal_pos"]
+    zeros = torch.zeros((B, 1), **kw)
+    tra_ang = torch.cat([zeros, scen[:, 8:9] * 0.5, zeros], dim=1)
+    t = torch.clamp(torch.linalg.vector_norm(x0[:, :3], dim=1) / 4.0, 2.0, 4.0)
+    return x0, torch.zeros((B, 4), **kw), goal, torch.zeros((B, 3), **kw), tra_ang, t
+
+
+def continuation_inputs(H: int, B: int, device="cpu", seed: int = 0, dtype=torch.float64,
+                        max_iters: int = 60, k2_call: int = 10):
+    """(the continuation's last solution, {"K2": ..., "K1": ...}): the inputs
+    K2 and K1 get at the `k2_call`-th DDP iteration of the last stage
+    (w_bound_weight = 1e6) of the omega-box continuation
+    (solver/constrained.py, the default ladder) of B `bench_problems`, as
+    solver/watch.py capture_inputs returns them."""
+    from learningagileflight_se3_torch.solver.constrained import DEFAULT_LADDER, make_w_bounded_solver
+    from learningagileflight_se3_torch.solver.watch import capture_inputs
+
+    C = SolverConfig(horizon=H, max_iters=max_iters)
+    solve = make_w_bounded_solver(QuadParams(), CostWeights(), C)
+    args = bench_problems(B, device, seed, dtype)
+    return capture_inputs(lambda: solve(*args), solve=len(DEFAULT_LADDER) - 1, k2_call=k2_call)
 
 
 def main_path_inputs(H: int, B: int, device="cpu", seed: int = 0, iters: int = 4):
@@ -109,21 +152,13 @@ def main_path_inputs(H: int, B: int, device="cpu", seed: int = 0, iters: int = 4
     at step lengths drawn from [0.1, 1], as a line-search trip sees them.
     Some lanes' rollouts blow up, as they do in the solver, whose line
     search rejects them."""
-    from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
     from learningagileflight_se3_torch.ops.riccati_fused import riccati_backward_plain
     from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 
     P, W = QuadParams(), CostWeights()
     C = SolverConfig(horizon=H, max_iters=iters, tol=1e-4, gtol=3e-4)
     kw = dict(dtype=torch.float64, device=device)
-    g = torch.Generator().manual_seed(seed)
-    scen = sample_scenarios(g, B, dtype=torch.float64).to(device)
-    prob = scenario_to_problem(scen)
-    x0, goal = prob["x0"], prob["goal_pos"]
-    zeros = torch.zeros((B, 1), **kw)
-    tra_ang = torch.cat([zeros, scen[:, 8:9] * 0.5, zeros], dim=1)
-    t = torch.clamp(torch.linalg.vector_norm(x0[:, :3], dim=1) / 4.0, 2.0, 4.0)
-    u_last = torch.zeros((B, 4), **kw)
+    x0, u_last, goal, _, tra_ang, t = bench_problems(B, device, seed)
     sol = make_batched_mpc_solver(P, W, C)(x0, u_last, goal, torch.zeros((B, 3), **kw), tra_ang, t)
 
     tq = rodrigues_to_quat(tra_ang)

@@ -2,7 +2,8 @@
 DNN-predicted traversal parameters theta = (tra_pos, tra_ang, t), batched.
 
 Port of `learningagileflight_se3_tpu/solver/diff.py` (the implicit-function
-VJP and `make_differentiable_control_solver_batched`).  At the solver's
+VJP, `make_differentiable_control_solver_batched`, and the single-problem
+`make_differentiable_control_solver` as a batch of one).  At the solver's
 fixed point grad_U J(U*, theta) = 0, so dU*/dtheta = -H^{-1} J_{U theta}
 with H the shooting Hessian.  The VJP theta_bar = -J_{theta U} H^{-1} U_bar
 needs one solve with H, done exactly by one affine-LQR Riccati sweep over
@@ -169,5 +170,18 @@ def make_differentiable_control_solver_batched(params: QuadParams, weights: Cost
 
     def solve_u(x0, u_last, goal, tra_pos, tra_ang, t):
         return _DifferentiableSolve.apply(x0, u_last, goal, tra_pos, tra_ang, t, solve, vjp)
+
+    return solve_u
+
+
+def make_differentiable_control_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig):
+    """solve_u(x0 (13,), u_last (4,), goal (3,), tra_pos (3,), tra_ang (3,),
+    t ()) -> U* (H,4), differentiable in goal, tra_pos, tra_ang and t: the
+    batched differentiable solve on a batch of one (quantize_t=False)."""
+    solve_b = make_differentiable_control_solver_batched(params, weights, cfg)
+
+    def solve_u(x0, u_last, goal, tra_pos, tra_ang, t):
+        t = torch.as_tensor(t, dtype=x0.dtype, device=x0.device)
+        return solve_b(x0[None], u_last[None], goal[None], tra_pos[None], tra_ang[None], t.reshape(1))[0]
 
     return solve_u

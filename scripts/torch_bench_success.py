@@ -9,8 +9,11 @@ settings of bench_success.py (H=50, max_iters=45, tol=1e-4, gtol=3e-4,
 no_progress_iters=10, float32).
 
 Prints ONE JSON line with bench_success.py's fields ("platform" is the
-card's name) plus "wall_s", the flight's synced wall time.  Diagnostics go
-to stderr.
+card's name) plus "wall_s", the flight's synced wall time, and
+"failed_scenarios", the diagnostics of every scenario that did not traverse
+the gate (the rows of "worst_scenarios"); given an npz with the reference
+flight's states, "against_reference_states" says where each lane parts from
+it.  Diagnostics go to stderr.
 
 Usage:
   python3 scripts/torch_bench_success.py                      # nn3_1, seed 2024, the port's sampler
@@ -18,6 +21,8 @@ Usage:
       learningagileflight_se3_torch/weights/bench_success_seed2024.npz
       # the scenarios and gate noise the JAX benchmark drew for that seed
   python3 scripts/torch_bench_success.py --ckpt runs/x/nn3_1 --n 128 --static-gate
+  python3 scripts/torch_bench_success.py --device cpu --float64 --scenarios runs/lanes/seed2024.npz
+      # lanes exported with the JAX package's own f64 noise by scripts/export_lane_flights.py
 """
 
 from __future__ import annotations
@@ -50,13 +55,21 @@ def load_model2(ckpt: str):
     return load_params(ckpt, make_dnn2()) if os.path.isdir(ckpt) else load_dnn2(ckpt)
 
 
-def worst_scenarios(trace, metrics, scen, k):
+def worst_scenarios(trace, metrics, scen, k, index=None):
     """Per-scenario diagnostics of the k worst flights by final goal
-    distance, naming the tail mechanism (most specific first)."""
+    distance."""
+    final_d = metrics.final_dist.cpu().numpy()
+    final_d = np.where(np.isfinite(final_d), final_d, np.inf)
+    return scenario_rows(trace, metrics, scen, np.argsort(-final_d)[:k], "worst", index)
+
+
+def scenario_rows(trace, metrics, scen, indices, what, index=None):
+    """Per-scenario diagnostics of the flights `indices`, naming the tail
+    mechanism (most specific first); `index` maps a flight to the
+    benchmark's scenario index where the flights are a subset."""
     m = {name: v.cpu().numpy() for name, v in metrics._asdict().items()}
-    final_d = np.where(np.isfinite(m["final_dist"]), m["final_dist"], np.inf)
     rows = []
-    for j, i in enumerate(np.argsort(-final_d)[:k]):
+    for j, i in enumerate(indices):
         states = trace.states[i].cpu().numpy()
         tt = trace.tra_times[i].cpu().numpy()
         d = np.linalg.norm(states[1:, 0:3] - np.asarray(scen[i][3:6]), axis=1)
@@ -77,7 +90,7 @@ def worst_scenarios(trace, metrics, scen, k):
             mech = "stalled"
         finite = np.isfinite(d)
         rows.append({
-            "scenario_index": int(i), "mechanism": mech,
+            "scenario_index": int(i if index is None else index[i]), "mechanism": mech,
             "final_dist_m": round(float(m["final_dist"][i]), 3),
             "traversed": bool(m["traversed"][i]), "diverged": bool(m["diverged"][i]),
             "margin_m": round(float(m["margin"][i]), 3),
@@ -91,8 +104,25 @@ def worst_scenarios(trace, metrics, scen, k):
             "replan_iters_mean": round(float(sit.mean()), 1) if sit.size else None,
             "max_speed_mps": round(float(np.nanmax(np.linalg.norm(states[:, 3:6], axis=1))), 2),
         })
-        log(f"worst[{j}] scenario {i}: {mech}  final {m['final_dist'][i]:.2f} m  "
+        log(f"{what}[{j}] scenario {i}: {mech}  final {m['final_dist'][i]:.2f} m  "
             f"v_end {speed:+.2f} m/s")
+    return rows
+
+
+def parting(states, reference, metrics, index, tol=1e-6):
+    """Lane by lane, where the flight's plant states part from a reference
+    flight's (scripts/export_lane_flights.py): the first step at which they
+    differ by more than `tol`, the largest difference before it, and the
+    difference at the end."""
+    d = np.abs(states - reference).max(axis=2)
+    rows = []
+    for j in range(d.shape[0]):
+        apart = np.flatnonzero(d[j] > tol)
+        first = int(apart[0]) if apart.size else None
+        rows.append({"scenario_index": int(j if index is None else index[j]),
+                     "traversed": bool(metrics.traversed[j]), "parted_at_step": first,
+                     "max_diff_before": float(d[j, :first].max()) if first else float(d[j].max()),
+                     "diff_at_end": float(d[j, -1])})
     return rows
 
 
@@ -113,15 +143,25 @@ def main():
                     help="std (m) of the gate corner observation noise (with --estimate-gate-motion)")
     ap.add_argument("--worst", type=int, default=3, help="diagnose the K worst scenarios by final distance")
     ap.add_argument("--device", default="cuda", help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--float64", action="store_true",
+                    help="fly in float64 (the benchmark flies float32); with --scenarios, an npz's "
+                         "obs_noise array is used as the gate observation noise")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gate_noise = None
+    gate_noise = obs_noise = index = reference = None
     if args.scenarios:
         scen, gate_noise = bench_scenarios(args.scenarios)
         scen, gate_noise = scen[:args.n], gate_noise[:args.n, :args.steps]
+        with np.load(args.scenarios) as z:
+            if args.float64 and "obs_noise" in z.files:
+                obs_noise = z["obs_noise"][:args.n, :args.steps]
+            if "indices" in z.files:  # exported lanes keep their benchmark indices
+                index = z["indices"][:args.n]
+            if "reference_states" in z.files:
+                reference = z["reference_states"][:args.n, :args.steps + 1]
         if gate_noise.shape[1] < args.steps:
             raise SystemExit(f"{args.scenarios} holds {gate_noise.shape[1]} steps of gate noise")
     else:
@@ -132,7 +172,8 @@ def main():
 
     trace, metrics, wall = fly(model2, scen, gate_noise, steps=args.steps, static_gate=args.static_gate,
                                estimate_gate_motion=args.estimate_gate_motion,
-                               gate_obs_noise=args.gate_obs_noise, seed=args.seed, device=device)
+                               gate_obs_noise=args.gate_obs_noise, seed=args.seed, device=device,
+                               dtype=torch.float64 if args.float64 else torch.float32, obs_noise=obs_noise)
     log(f"{len(scen)} x {args.steps}-step closed-loop flights in {wall:.1f} s")
     out = summarize(
         metrics, trace.solver_iters, sim_steps=int(args.steps),
@@ -142,8 +183,12 @@ def main():
         ckpt=os.path.relpath(args.ckpt, REPO) if os.path.isabs(args.ckpt) else args.ckpt,
         seed=int(args.seed), scenarios=args.scenarios or "sample_scenarios", platform=platform,
         wall_s=round(wall, 3))
+    out["failed_scenarios"] = scenario_rows(trace, metrics, scen, np.flatnonzero(~metrics.traversed.cpu().numpy()),
+                                            "failed", index)
     if args.worst > 0:
-        out["worst_scenarios"] = worst_scenarios(trace, metrics, scen, min(args.worst, len(scen)))
+        out["worst_scenarios"] = worst_scenarios(trace, metrics, scen, min(args.worst, len(scen)), index)
+    if reference is not None:
+        out["against_reference_states"] = parting(trace.states.cpu().numpy(), reference, metrics, index)
     print(json.dumps(out))
 
 

@@ -9,7 +9,10 @@ scripts/train_pipeline.py's run order on `learningagileflight_se3_torch`:
 Runs on the CUDA card unless --device cpu.  Artifacts land in runs/<tag>/:
 `save_params` directories nn_pre, nn_deep and nn3_1, the stage-2 training
 state, the learning curves (.npy), the 8 closed-loop logs of the first
-evaluation scenario, and summary.json.  Plots are not drawn here.
+evaluation scenario, its position and input plots (where matplotlib is
+installed) and summary.json.  Each stage is timed (utils/profiling.py
+StageTimer; the report closes the run), and --profile-dir writes a
+torch.profiler trace of the whole run there.
 
 Usage:
   python3 scripts/torch_train_pipeline.py                 # mini demo scale
@@ -22,6 +25,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -50,6 +54,7 @@ from learningagileflight_se3_torch.train.pretrain import evaluate_pretrain, run_
 from learningagileflight_se3_torch.train.rl import keyed_generator, run_rl_training  # noqa: E402
 from learningagileflight_se3_torch.utils.checkpoint import save_params  # noqa: E402
 from learningagileflight_se3_torch.utils.device import resolve_device  # noqa: E402
+from learningagileflight_se3_torch.utils.profiling import StageTimer, device_trace  # noqa: E402
 
 
 def main():
@@ -82,6 +87,8 @@ def main():
                     help="cosine-decay the stage-2 lr over the run")
     ap.add_argument("--eval-scenarios", type=int, default=64,
                     help="closed-loop evaluation scenario count (success rate)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the run (trace.json) to this directory")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -108,14 +115,16 @@ def main():
         imi_epochs = args.imitation_epochs or 5
     # one seed per stage and draw, all from --seed
     seeds = [int(s) for s in np.random.SeedSequence(args.seed).generate_state(8)]
-    stage_s = {}
+    timer = StageTimer()
+    stage_s = timer.totals
+    trace_ctx = device_trace(args.profile_dir)
+    trace_ctx.__enter__()
 
     def timed(name, fn):
         sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        stage_s[name] = time.perf_counter() - t0
+        with timer(name):
+            out = fn()
+            sync()
         return out
 
     # ---------------- stage 1: supervised pretraining ----------------------
@@ -191,6 +200,11 @@ def main():
                         ("abs_tra_time", "abs_tra_times"), ("tra_time", "tra_times"), ("Time", "times"),
                         ("Pitch", "pitches"), ("HL_Variable", "hl_variables")):
         np.save(os.path.join(outdir, name + ".npy"), getattr(trace, field)[0].cpu().numpy())
+    if importlib.util.find_spec("matplotlib") is not None:
+        from learningagileflight_se3_torch.sim import plotting
+
+        plotting.plot_position(trace.states[0].cpu().numpy(), dt=0.01, path=os.path.join(outdir, "position.png"))
+        plotting.plot_input(trace.controls[0].cpu().numpy(), dt=0.01, path=os.path.join(outdir, "input.png"))
 
     summary = {
         "pretrain_eval_mse": pre_mse,
@@ -214,6 +228,8 @@ def main():
         "n_devices": 1,
         "stage_seconds": stage_s,
     }
+    trace_ctx.__exit__(None, None, None)
+    timer.report()
     with open(os.path.join(outdir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(f"[pipeline] done: {json.dumps(summary)}", flush=True)

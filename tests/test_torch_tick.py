@@ -196,10 +196,11 @@ def test_replay_contract_through_the_port():
 
 def test_entry_points_default_to_the_card(monkeypatch):
     """ExternalSimController, run_rl_training, run_pretraining,
-    run_imitation_training and make_closed_loop_sim run on the card unless
-    given device="cpu": without a card their default raises before any work,
-    and nothing runs on the CPU in its place."""
+    run_imitation_training, make_closed_loop_sim and run_validation_sim run
+    on the card unless given device="cpu": without a card their default
+    raises before any work, and nothing runs on the CPU in its place."""
     from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.sim.validation_sim import ValidationSimConfig, run_validation_sim
     from learningagileflight_se3_torch.train.imitation import run_imitation_training
     from learningagileflight_se3_torch.train.pretrain import run_pretraining
     from learningagileflight_se3_torch.train.rl import run_rl_training
@@ -218,6 +219,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
         run_imitation_training(0, load_dnn1(), epochs=1, batch_scenarios=2, log_fn=lambda *a: None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_closed_loop_sim(load_dnn2())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_validation_sim(load_dnn2(), ValidationSimConfig(duration_sec=0.01))
     assert (rollout.plain_calls, riccati_fused.plain_calls) == plain
     ctrl = ExternalSimController(load_dnn2(), final_point=np.zeros(3),
                                  gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)),
