@@ -6,8 +6,9 @@ batched solver at the bench.py operating point, the 10 Hz deployment tick,
 stage-2 RL training of DNN1, the batched 100 Hz closed-loop flight that
 scores the shipped DNN2, stages 1 and 3 (pretraining, imitation), and the
 side paths (the validation flight, the omega-box continuation, the policy
-searches, the costates), and fails (non-zero exit, no result line) if any
-phase fails or if there is no CUDA device.  Imports nothing of JAX.
+searches, the costates), the parallel-in-time sweep, multi-process
+data-parallel RL and the two ablation drivers, and fails (non-zero exit,
+no result line) if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
@@ -94,6 +95,33 @@ Phases, each printing its numbers on lines of its own:
              policy search (20 iterations) and the LSFD search (5) at H=50 on
              one scenario with their launches; (d) both costate options on
              the policy search's final solution
+  12 parallel sweep  cfg.backward="parallel" (solver/parallel_riccati.py,
+             plain PyTorch, iLQR) against the sequential sweep (K2,
+             use_ddp=False) at H=50 on bench.py-style scenarios, B=1 and 256,
+             f64 (tol 1e-9) and f32 (tol 1e-4), 60 iterations: each solve's
+             time (f32 best of 3), converged share, iterations, status
+             histogram, K1 / K2 launches (K2 none on the parallel path), and
+             the parallel cost against the sequential one (printed: the
+             JAX package's parallel mode ends most such lanes in the
+             blowout exit as well, scripts/compare_parallel_sweep.py);
+             gated: finite costs; the one-iteration identity (H=16, reg 0,
+             box +-50, f64) within rtol 1e-8; a 5-iteration solve (H=50,
+             f64, 4 lanes) on the card against the CPU (at least 3 lanes on
+             the same iterations and exit and within 1e-9 in cost); one
+             sweep on the card against the CPU in f64 on the solver's
+             trajectories (1e-9, equal fail flags); one sweep's time (f32)
+             beside K2's
+  13 multi-process RL  parallel/dryrun.py at the --full width (B=256, H=50,
+             f32): one NCCL rank, then two gloo ranks on the one card (128
+             lanes each), the sharded step in the fd and analytic modes
+             against the unsharded one (rewards rtol 2e-5, gradients 1e-2 of
+             each tensor's largest entry, parameters atol 2e-4 = 2 lr, every
+             rank identical), each step's time (after a warm-up step) and
+             launches
+  14 ablations  scripts/torch_ablate_rl.py (fd2, analytic2sched, batch 32)
+             and scripts/torch_ablate_imitation.py (3 frames, 2 epochs of 16
+             scenarios) on the card, 16 evaluation scenarios, 100 simulation
+             steps: the JAX records' JSON keys, finite values, launches
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of phase 4's solve, the main path, `launches_by_path` each path's
@@ -187,14 +215,6 @@ PARTED = 1e-9  # two paths' records of one call differ by more: they have parted
 
 def log(*a):
     print(*a, flush=True)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, n=N_TIMED, card_only=False):
@@ -368,11 +388,13 @@ class Smoke:
 
     def run(self, name, fn):
         log(f"== phase {name}")
+        t0 = time.perf_counter()
         try:
             fn()
         except Exception:  # every phase runs; any failure fails the run
             self.failures.append(f"phase {name} raised")
             log(f"FAIL: phase {name} raised\n{traceback.format_exc()}")
+        log(f"== phase {name}: {time.perf_counter() - t0:.1f} s")
 
     def start_plain_side(self, what):
         """Start the CPU process that runs PLAIN_SIDES[what], once."""
@@ -407,7 +429,9 @@ class Smoke:
 
     # ------------------------------------------------------------ 1 device
     def device(self):
-        self.smi = nvidia_smi_line()
+        from learningagileflight_se3_torch.utils.device import platform_line
+
+        self.smi = platform_line("cuda")
         log(f"device: {self.smi}")
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -1532,6 +1556,176 @@ class Smoke:
             self.check(ok, f"phase 11 costates option {option}: misshapen or not finite")
 
 
+    # ---------------------------------------------------- 12 parallel sweep
+    def parallel_sweep(self):
+        """cfg.backward="parallel" (solver/parallel_riccati.py, plain PyTorch)
+        against the sequential sweep (K2) at H=50, use_ddp=False."""
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
+        from learningagileflight_se3_torch.ops import riccati_fused
+        from learningagileflight_se3_torch.ops.inputs import bench_problems, main_path_inputs
+        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, make_parallel_backward
+
+        P, W = QuadParams(), CostWeights()
+        # tests/test_parallel_riccati.py's settings: the f64 full solve, the f32 comparable cost
+        settings = {torch.float64: dict(max_iters=60, tol=1e-9, gtol=1e-7),
+                    torch.float32: dict(max_iters=60, tol=1e-4, gtol=3e-4)}
+        for dtype, kw in settings.items():
+            name = "f64" if dtype == torch.float64 else "f32"
+            reps = 3 if dtype == torch.float32 else 1
+            for B in (1, 256):
+                args = bench_problems(B, "cuda", seed=12, dtype=dtype)
+                sols = {}
+                for mode in ("sequential", "parallel"):
+                    solve = make_batched_mpc_solver(P, W, SolverConfig(horizon=50, use_ddp=False, backward=mode, **kw))
+                    plain0 = read_plain_calls()
+                    reset_launches()
+                    best = float("inf")
+                    for _ in range(reps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        sol = solve(*args)
+                        torch.cuda.synchronize()
+                        best = min(best, time.perf_counter() - t0)
+                    n = read_launches()
+                    if mode == "parallel" and dtype == torch.float32 and B == 256:
+                        self.path_launches["parallel_sweep"] = n
+                    sols[mode] = sol
+                    hist = torch.bincount(sol.status.long(), minlength=5).tolist()
+                    log(f"parallel sweep: {mode}, {name}, B={B}: {best * 1e3:.2f} ms a solve (synced, best of "
+                        f"{reps}); converged {sol.converged.float().mean().item():.4f}, iterations mean "
+                        f"{sol.iterations.float().mean().item():.2f} max {int(sol.iterations.max())}, status "
+                        f"histogram {hist}; launches a solve K1 {n['K1'] / reps:.1f} K2 {n['K2'] / reps:.1f} "
+                        f"[{self.smi}]")
+                    self.check(n["K1"] > 0 and (n["K2"] == 0) == (mode == "parallel"),
+                               f"phase 12 {mode} {name} B={B}: kernel launches {n}")
+                    self.check(read_plain_calls() == plain0, f"phase 12 {mode} moved a plain-version counter")
+                Js, Jp = (sols[m].cost.double().cpu() for m in ("sequential", "parallel"))
+                rel = (Jp - Js) / Js.abs().clamp_min(1.0)
+                blown = sols["parallel"].status.cpu() == 4
+                within = (rel.abs() <= 1e-2).double().mean().item()
+                log(f"parallel sweep: {name}, B={B}: cost against the sequential sweep: median rel "
+                    f"{rel.median().item():.3e}, max {rel.max().item():.3e}, min {rel.min().item():.3e}, within 1% "
+                    f"{within:.4f}; parallel lanes in the blowout exit (status 4) {blown.double().mean().item():.4f}, "
+                    f"worst rel of the others {rel[~blown].max().item() if (~blown).any() else float('nan'):.3e}")
+                # printed, not gated: the JAX package's parallel mode ends most of these lanes in
+                # the blowout exit as well (scripts/compare_parallel_sweep.py, PERF.md section 6)
+                self.check(bool(torch.isfinite(Jp).all()), f"phase 12 {name} B={B}: parallel costs not finite")
+
+        # the one-iteration identity (reg 0, box +-50, no DDP term), f64
+        kw = dict(horizon=16, max_iters=1, use_ddp=False, u_lb=-50.0, u_ub=50.0, reg_init=0.0, reg_min=0.0,
+                  tol=1e-12, gtol=1e-12)
+        args = bench_problems(256, "cuda", seed=13)
+        U = {m: make_batched_mpc_solver(P, W, SolverConfig(backward=m, **kw))(*args).control_traj.cpu()
+             for m in ("sequential", "parallel")}
+        excess = ((U["parallel"] - U["sequential"]).abs() / (1e-8 * U["sequential"].abs() + 1e-10)).max().item()
+        log(f"parallel sweep: one-iteration identity (H=16, reg 0, box +-50, f64, B=256): max |dU| "
+            f"{(U['parallel'] - U['sequential']).abs().max().item():.3e}, {excess:.3e} of the rtol 1e-8 bound")
+        self.check(excess <= 1.0, "phase 12 one-iteration identity: parallel and sequential controls differ")
+
+        # a short parallel solve on the card against the CPU, f64: the paths part only where a
+        # line-search or exit test ties (phase 9), so at least 3 of 4 lanes must take the same
+        # iterations and exit and end within 1e-9 of the CPU's cost
+        C = SolverConfig(horizon=50, max_iters=5, use_ddp=False, backward="parallel")
+        sols = {dev: make_batched_mpc_solver(P, W, C)(*bench_problems(4, dev, seed=14)) for dev in ("cuda", "cpu")}
+        d = ((sols["cuda"].cost.cpu() - sols["cpu"].cost) / sols["cpu"].cost.abs().clamp_min(1.0)).abs()
+        within = ((d <= 1e-9) & (sols["cuda"].iterations.cpu() == sols["cpu"].iterations)
+                  & (sols["cuda"].status.cpu() == sols["cpu"].status))
+        log(f"parallel sweep: 5-iteration solve (H=50, f64, 4 lanes), card against CPU: {int(within.sum())} of 4 "
+            f"lanes on the same iterations and exit within 1e-9 (largest cost difference {d.max().item():.3e}); "
+            f"iterations card {sols['cuda'].iterations.tolist()} CPU {sols['cpu'].iterations.tolist()}")
+        self.check(int(within.sum()) >= 3, "phase 12 5-iteration solve, card against CPU")
+
+        # one sweep on the card against the CPU (f64, the solver's trajectories; the CPU
+        # side on at most 16 of the lanes), and its time beside K2's
+        C = SolverConfig(horizon=50, use_ddp=False, backward="parallel")
+        sweep = make_parallel_backward(C, C.u_lb, C.u_ub)
+        for B in (256, 1):
+            _, k2 = main_path_inputs(50, B, device="cuda", iters=INPUT_ITERS)
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                a = [x[..., :16].contiguous().to(dev) for x in k2]
+                outs[dev] = sweep(derivatives(*a[:8], P, W, C), a[0][:, 17:].contiguous(), a[8][0])
+            errs = [rel_err(g, w) for g, w in zip(outs["cuda"][:4], outs["cpu"][:4])]
+            same = torch.equal(outs["cuda"][4].cpu(), outs["cpu"][4])
+            log(f"parallel sweep: one sweep, card against CPU, f64, H=50, {min(B, 16)} lanes: kk {errs[0][0]:.3e} KK "
+                f"{errs[1][0]:.3e} dV1 {errs[2][0]:.3e} dV2 {errs[3][0]:.3e}; fail flags equal {same} "
+                f"({int(outs['cpu'][4].sum())} failed)")
+            self.check(all(e <= 1e-9 and nan_ok for e, nan_ok in errs) and same,
+                       f"phase 12 one sweep, card against CPU, B={B}: {errs}, fail flags equal {same}")
+            a = [x.float().contiguous() for x in k2]
+            t_par = median_ms(lambda: sweep(derivatives(*a[:8], P, W, C), a[0][:, 17:].contiguous(), a[8][0]), n=5)
+            t_k2 = median_ms(lambda: riccati_fused.riccati_backward(*a, P, W, C, use_ddp=False), card_only=True)
+            log(f"parallel sweep: one sweep, f32, H=50, B={B}: derivatives + parallel sweep {t_par:.3f} ms "
+                f"(CUDA events, host launches included); K2 (use_ddp=False) {t_k2:.4f} ms (the card's alone) "
+                f"[{self.smi}]")
+
+    # ------------------------------------------------- 13 multi-process RL
+    def multiprocess_rl(self):
+        """Data-parallel RL at the --full width (B=256, H=50, f32): one NCCL
+        rank, then two gloo ranks on the one card, each against the
+        unsharded step (parallel/dryrun.py; it raises on a mismatch)."""
+        from learningagileflight_se3_torch.config import SolverConfig
+        from learningagileflight_se3_torch.parallel.dryrun import BOUNDS, dryrun_multiprocess
+
+        cfg = SolverConfig(horizon=50, max_iters=45, tol=1e-4, gtol=3e-4, no_progress_iters=10)
+        scratch = os.path.join(REPO, "build", "smoke")
+        os.makedirs(scratch, exist_ok=True)
+        for n, backend in ((1, "nccl"), (2, "gloo")):
+            t0 = time.perf_counter()
+            report = dryrun_multiprocess(n, device="cuda", backend=backend, batch=256, solver_cfg=cfg,
+                                         dtype=torch.float32, scratch_dir=scratch)
+            k1 = sum(l[0] for r in report.values() for l in r["launches"])
+            k2 = sum(l[1] for r in report.values() for l in r["launches"])
+            self.path_launches[f"sharded_rl_{backend}_{n}"] = dict(K1=k1, K2=k2, K3=0)
+            for mode, r in report.items():
+                log(f"multi-process RL: {n} {backend} rank(s), {256 // n} lanes each, {mode}: sharded step "
+                    f"{', '.join(f'{x:.3f}' for x in r['sharded_s'])} s (each rank, synced), unsharded step "
+                    f"{r['unsharded_s']:.3f} s; rewards max rel diff {r['reward_rel']:.3e}, gradients "
+                    f"{r['grad_rel']:.3e}, params max abs diff {r['param_abs']:.3e} (bounds "
+                    f"{BOUNDS[torch.float32]}); launches (K1, K2) per rank {r['launches']} [{self.smi}]")
+            log(f"multi-process RL: {n} {backend} rank(s): {time.perf_counter() - t0:.1f} s with the start-up")
+            self.check(k1 > 0 and k2 > 0, f"phase 13 {backend} kernel launches {k1}, {k2}")
+
+    # ------------------------------------------------------- 14 ablations
+    def ablations(self):
+        """Each ablation script's main on the card at a tiny setting; its JSON
+        has the JAX records' keys and finite values."""
+        import importlib.util
+
+        runs = {
+            "torch_ablate_rl": ("artifacts/ablate_rl_r3.json", "fd400sched",
+                                ["--batch", "32", "--eval-scenarios", "16", "--variants", "fd2,analytic2sched"]),
+            "torch_ablate_imitation": ("runs/ablate_imitation/ablation.json", None,
+                                       ["--epochs", "2", "--batch-scenarios", "16", "--sgd-passes", "2",
+                                        "--eval-scenarios", "16", "--sim-steps", "100"]),
+        }
+        for name, (record, variant_keys, argv) in runs.items():
+            spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            out_dir = os.path.join(REPO, "build", "smoke", name)
+            shutil.rmtree(out_dir, ignore_errors=True)  # no resume from an earlier run's state
+            with open(os.path.join(REPO, record)) as f:
+                want = json.load(f)
+            plain0 = read_plain_calls()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = mod.main(argv + ["--out", out_dir])
+            wall = time.perf_counter() - t0
+            self.path_launches[name.replace("torch_", "")] = n = read_launches()
+            for variant, res in out["results"].items():
+                ref = want["results"][variant if variant_keys is None or variant == "pretrain" else variant_keys]
+                self.check(set(res) == set(ref) and all(np.isfinite(v) for v in res.values()),
+                           f"phase 14 {name} {variant}: keys {sorted(res)} or values not finite")
+            self.check(set(want["meta"]) <= set(out["meta"]) and out["meta"]["platform"] == self.smi,
+                       f"phase 14 {name}: meta {out['meta']}")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 14 {name}: kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 14 {name} moved a plain-version counter")
+            log(f"ablation {name} ({' '.join(argv)}): {wall:.1f} s, launches K1 {n['K1']} K2 {n['K2']}; "
+                f"{json.dumps(out['results'])} [{self.smi}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -1567,8 +1761,9 @@ def drive(s, only):
     phases = [("1 device", s.device), ("2 build", s.build), ("3 kernels", s.kernels_vs_plain),
               ("4 solve", s.solve), ("5 paths", s.paths), ("6 tick", s.tick), ("7 K3", s.k3),
               ("8 train", s.train), ("9 closed loop", s.closed_loop), ("10 stages", s.stages),
-              ("11 side paths", s.side_paths),
-              # after phases 10 and 11, so that its CPU side has had the time it needs
+              ("11 side paths", s.side_paths), ("12 parallel sweep", s.parallel_sweep),
+              ("13 multi-process RL", s.multiprocess_rl), ("14 ablations", s.ablations),
+              # after phases 10 to 14, so that its CPU side has had the time it needs
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:

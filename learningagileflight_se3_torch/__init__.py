@@ -13,13 +13,16 @@ Layering (bottom -> top):
   dynamics/  13-state quadrotor ODE and the forward-Euler step
   costs/     goal / traversal / thrust stage costs, the shooting cost
   solver/    chol4, boxQP, closed-form derivatives, the batched DDP solver,
-             the differentiable solve (diff.py)
+             the parallel-in-time Riccati sweep (parallel_riccati.py), the
+             differentiable solve (diff.py)
   ops/       the three CUDA kernels (csrc/) with their plain PyTorch versions
   geometry/  gate kinematics, the 18-dim DNN2 window input, the collision
              score and trajectory reward
   models/    DNN1/DNN2 MLPs and the scenario sampler
   policy.py  the RL learning signals through the batched solve
-  train/     stage-2 RL (rl.py)
+  train/     the three training stages (pretrain.py, rl.py, imitation.py)
+  parallel/  multi-process data parallelism: the scenario mesh, the process
+             group, the sharded dry run
   sim/       traversal-time fixed point and the external-simulator tick
   utils/     flax -> torch weight conversion, training-state checkpoints
 

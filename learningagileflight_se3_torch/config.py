@@ -80,7 +80,7 @@ class SolverConfig:
     ls_max_trips: int = 14      # alpha evaluations per iteration
     no_progress_iters: int = 0  # progress-window termination (0 = off)
     quantize_t: bool = True     # round traversal time to 0.1 s
-    backward: str = "sequential"  # read only by the JAX single-problem solver
+    backward: str = "sequential"  # "sequential" (K2) or "parallel" (solver/parallel_riccati.py)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -65,6 +65,29 @@ def derivatives_plain(ZU, t_w, goal, tra_pos, Hatt, att0, phi_z, phi_zz, reg,
             ZU[:, NZ:].contiguous(), ZU, phi_z, phi_zz, reg]
 
 
+def projected_gradient(A, B, lz, lu, U, phi_z, lb: float, ub: float):
+    """The true projected gradient of each lane, (B,), from K3's inputs (same
+    layout): the adjoint lam_k = lz_k + A_k^T lam_{k+1} from lam_H = phi_z,
+    g_u = lu_k + B_k^T lam_{k+1}, the free mask with eps_b = 1e-7 (ub - lb),
+    then the largest |g_u| on a free control (solver/ilqr.py `derivatives`).
+    The KKT residual the solver's exit test reads."""
+    H = A.shape[0]
+    first = lambda x: x.movedim(-1, 1)  # (H,...,B) -> (H,B,...)
+    A, Bm, lz, lu = (first(x) for x in (A, B, lz, lu))
+    Uf = U.permute(0, 2, 1)
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    tr = lambda M: M.transpose(-1, -2)
+    eps_b = 1e-7 * (ub - lb)
+    lam = phi_z.T
+    pg = torch.zeros(lam.shape[0], dtype=lam.dtype, device=lam.device)
+    for k in reversed(range(H)):
+        gu = lu[k] + mv(tr(Bm[k]), lam)
+        free_g = ~(((Uf[k] <= lb + eps_b) & (gu > 0)) | ((Uf[k] >= ub - eps_b) & (gu < 0)))
+        pg = torch.maximum(pg, torch.amax(gu.abs() * free_g, dim=-1))
+        lam = lz[k] + mv(tr(A[k]), lam)
+    return pg
+
+
 def riccati_unfused_plain(A, B, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg,
                           params: QuadParams, dt: float, lb: float, ub: float,
                           boxqp_iters: int = 6, use_ddp: bool = True):
@@ -74,29 +97,21 @@ def riccati_unfused_plain(A, B, lz, lu, lzz, luz, luu, U, ZU, phi_z, phi_zz, reg
     global plain_calls
     plain_calls += 1
     H = A.shape[0]
+    pg = projected_gradient(A, B, lz, lu, U, phi_z, lb, ub)
     first = lambda x: x.movedim(-1, 1)  # (H,...,B) -> (H,B,...)
     A, Bm, lz, lu, lzz, luz, luu = (first(x) for x in (A, B, lz, lu, lzz, luz, luu))
     zu, Uf = ZU.permute(0, 2, 1), U.permute(0, 2, 1)
     Vz = phi_z.T
     Vzz = phi_zz.permute(2, 0, 1)
-    lam = Vz
     dV1 = torch.zeros_like(reg[0])
     dV2 = torch.zeros_like(reg[0])
-    pg = torch.zeros_like(reg[0])
     fail = torch.zeros(reg.shape[1], dtype=torch.bool, device=reg.device)
     r = reg[0][:, None, None]
-    eps_b = 1e-7 * (ub - lb)
     kk, KK = [None] * H, [None] * H
     mv = lambda M, v: (M @ v[..., None])[..., 0]
     tr = lambda M: M.transpose(-1, -2)
     for k in reversed(range(H)):
         a, bm, u_k = A[k], Bm[k], Uf[k]
-        # adjoint for the true projected gradient
-        gu = lu[k] + mv(tr(bm), lam)
-        free_g = ~(((u_k <= lb + eps_b) & (gu > 0)) | ((u_k >= ub - eps_b) & (gu < 0)))
-        pg = torch.maximum(pg, torch.amax(gu.abs() * free_g, dim=-1))
-        lam = lz[k] + mv(tr(a), lam)
-
         Qz = lz[k] + mv(tr(a), Vz)
         Qu = lu[k] + mv(tr(bm), Vz)
         Qzz = lzz[k] + tr(a) @ Vzz @ a

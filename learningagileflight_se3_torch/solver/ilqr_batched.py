@@ -15,6 +15,15 @@ capped line search with deep-ladder escalation, the progress window, the
 The TPU's rule that the batch be a multiple of 128 is gone: the kernels
 mask their own ragged edge.
 
+`cfg.backward` selects the sweep, as the JAX single-problem solver's does
+(`solver/ilqr.py`): "sequential" is K2, "parallel" the closed-form
+derivatives followed by the parallel-in-time sweep of
+`solver/parallel_riccati.py` (plain PyTorch; iLQR only, so `use_ddp=True`
+raises).  The JAX package's batched Pallas solver ignores `cfg.backward`
+and always runs its fused kernel; its `backend="xla"` batched solver, the
+vmapped single-problem solver, honours it.  The port follows the `xla`
+backend here.  The line search runs K1 either way.
+
 Trajectories stay in the kernels' time-major, batch-last layout
 (Z (H+1,17,B), U (H,4,B), KK (H,4,17,B)) for the whole solve, so no
 transposing copy precedes a launch; per-lane selections broadcast over the
@@ -38,6 +47,7 @@ from learningagileflight_se3_torch.solver.analytic import (
     make_final_quadratics,
 )
 from learningagileflight_se3_torch.solver.ilqr import MPCSolution
+from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, parallel_backward
 
 NX = 13
 NU = 4
@@ -70,14 +80,29 @@ def make_batched_solver(params: QuadParams, weights: CostWeights, cfg: SolverCon
         Zs, _, c = rollout(Z_ref, U, kk0, KK0, t_w, alpha0, goal, tra_pos, tra_quat)
         return torch.cat([z0[None], Zs]), c
 
+    if cfg.backward == "parallel":
+        if cfg.use_ddp:
+            raise ValueError(
+                "cfg.backward='parallel' is a Gauss-Newton (iLQR) sweep and "
+                "cannot honor use_ddp=True: the associative-scan composition "
+                "has no slot for the second-order dynamics terms. Set "
+                "use_ddp=False explicitly to opt into the iLQR downgrade."
+            )
+    elif cfg.backward != "sequential":
+        raise ValueError(f"unknown cfg.backward: {cfg.backward!r}")
+
     def backward(Z, U, t_w, goal, tra_pos, Hatt, att0, reg):
-        """K2 on the current trajectory; only the terminal quadratics are
-        formed outside the kernel."""
+        """The backward sweep on the current trajectory: K2 (sequential), or
+        the closed-form derivatives and the parallel-in-time sweep; only the
+        terminal quadratics are formed outside K2."""
         ZU = torch.cat([Z[:-1], U], dim=1)
         phi_z, phi_zz = final_quadratics(Z[-1].T, goal.T)
+        phi_z, phi_zz = phi_z.T.contiguous(), phi_zz.permute(1, 2, 0).contiguous()
+        if cfg.backward == "parallel":
+            derivs = derivatives(ZU, t_w, goal, tra_pos, Hatt, att0, phi_z, phi_zz, params, weights, cfg)
+            return parallel_backward(derivs, U, reg, cfg, lb, ub)
         return riccati_backward(
-            ZU, t_w, goal, tra_pos, Hatt, att0,
-            phi_z.T.contiguous(), phi_zz.permute(1, 2, 0).contiguous(), reg[None],
+            ZU, t_w, goal, tra_pos, Hatt, att0, phi_z, phi_zz, reg[None],
             params, weights, cfg, boxqp_iters=cfg.boxqp_iters, use_ddp=cfg.use_ddp,
         )
 

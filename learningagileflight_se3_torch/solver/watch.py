@@ -2,8 +2,9 @@
 
 A debugging and checking aid: inside `watched_kernels(on_call)` every call
 the batched solver (solver/ilqr_batched.py) makes to its K1 (rollout) and K2
-(backward sweep) wrappers is reported with its place in the solve, its
-arguments and its outputs.  chip_smoke.py and the card tests use it to hold
+(backward sweep) wrappers, and to the parallel sweep where that replaces
+K2, is reported with its place in the solve, its arguments and its
+outputs.  chip_smoke.py and the card tests use it to hold
 the kernels against their plain versions on the inputs a path really gives
 them, and to see where two paths part.  The watcher launches nothing of its
 own and changes no value.
@@ -23,19 +24,24 @@ def watched_kernels(on_call):
         on_call(kind, solve, iteration, trip, args, kwargs, out)
 
     kind "K2": the backward sweep of DDP iteration `iteration` (from 0) of
-    the `solve`-th solve of the block (from 0), `trip` None; "K1": line-search
-    trip `trip` (from 0) of that iteration, the rollout under that sweep's
-    gains; "K1 cost": an open-loop rollout at the start of a solve (the warm
+    the `solve`-th solve of the block (from 0), `trip` None; "parallel
+    sweep": the same for a solver with cfg.backward="parallel"
+    (solver/parallel_riccati.py, not a kernel); "K1": line-search trip
+    `trip` (from 0) of that iteration, the rollout under that sweep's gains;
+    "K1 cost": an open-loop rollout at the start of a solve (the warm
     start's guard, the initial trajectory), `iteration` -1 and `trip` None.
     `args` and `kwargs` are the wrapper's own, `out` what it returned."""
     real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward
+    real_sweep = ilqr_batched.parallel_backward
     at = dict(solve=-1, iteration=-1, trip=0, kk=None)
 
-    def k2(*a, **kw):
-        out = real_k2(*a, **kw)
-        at.update(iteration=at["iteration"] + 1, trip=0, kk=out[0])
-        on_call("K2", at["solve"], at["iteration"], None, a, kw, out)
-        return out
+    def sweep(kind, real):
+        def call(*a, **kw):
+            out = real(*a, **kw)
+            at.update(iteration=at["iteration"] + 1, trip=0, kk=out[0])
+            on_call(kind, at["solve"], at["iteration"], None, a, kw, out)
+            return out
+        return call
 
     def k1(*a, **kw):
         out = real_k1(*a, **kw)
@@ -49,11 +55,13 @@ def watched_kernels(on_call):
         on_call("K1 cost", at["solve"], -1, None, a, kw, out)
         return out
 
-    ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, k2
+    ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, sweep("K2", real_k2)
+    ilqr_batched.parallel_backward = sweep("parallel sweep", real_sweep)
     try:
         yield
     finally:
         ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = real_k1, real_k2
+        ilqr_batched.parallel_backward = real_sweep
 
 
 def capture_inputs(run, solve=0, k2_call=10):

@@ -18,3 +18,18 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device}: no CUDA device is available "
                            "(pass device='cpu' to run on the CPU)")
     return device
+
+
+def platform_line(device) -> str:
+    """What a record names its hardware by: for a CUDA device the card's
+    name and power limit as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` gives them, else "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

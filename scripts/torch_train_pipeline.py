@@ -6,7 +6,11 @@ scripts/train_pipeline.py's run order on `learningagileflight_se3_torch`:
   stage 3  imitation of DNN1's MPC rollouts, DNN2  (train/imitation.py)
   eval     DNN2 flown through the moving gate      (sim/closed_loop.py)
 
-Runs on the CUDA card unless --device cpu.  Artifacts land in runs/<tag>/:
+Runs on the CUDA card unless --device cpu.  With LAF_NUM_PROCESSES > 1 (and
+LAF_COORDINATOR_ADDRESS, LAF_PROCESS_ID: parallel/distributed.py) stage 2
+runs data-parallel over the processes, one per card (scripts/train_pipeline.py's
+mesh); every process runs every stage, and those other than rank 0 write
+under runs/<tag>/rank<r>/.  Artifacts land in runs/<tag>/:
 `save_params` directories nn_pre, nn_deep and nn3_1, the stage-2 training
 state, the learning curves (.npy), the 8 closed-loop logs of the first
 evaluation scenario, its position and input plots (where matplotlib is
@@ -44,6 +48,8 @@ from learningagileflight_se3_torch.config import (  # noqa: E402
     SamplerConfig,
 )
 from learningagileflight_se3_torch.models.sampler import sample_scenarios  # noqa: E402
+from learningagileflight_se3_torch.parallel.distributed import initialize_distributed  # noqa: E402
+from learningagileflight_se3_torch.parallel.mesh import make_mesh  # noqa: E402
 from learningagileflight_se3_torch.sim.bench import solver_config  # noqa: E402
 from learningagileflight_se3_torch.sim.closed_loop import (  # noqa: E402
     evaluate_closed_loop,
@@ -92,12 +98,19 @@ def main():
     args = ap.parse_args()
 
     device = resolve_device(args.device)
+    # stage 2 data-parallel over the LAF_* processes (scripts/train_pipeline.py's mesh)
+    mesh = None
+    if int(os.environ.get("LAF_NUM_PROCESSES", "1")) > 1:
+        initialize_distributed(device=device)
+        mesh = make_mesh(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     platform = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     tag = args.tag or time.strftime("%Y%m%d-%H%M%S")
-    outdir = os.path.join("runs", tag)
+    rundir = os.path.join("runs", tag)
+    # every rank runs every stage; ranks other than 0 keep their artifacts apart
+    outdir = rundir if mesh is None or mesh.rank == 0 else os.path.join(rundir, f"rank{mesh.rank}")
     os.makedirs(outdir, exist_ok=True)
     print(f"[pipeline] device={platform} outdir={outdir}", flush=True)
 
@@ -140,8 +153,8 @@ def main():
     model1, mean_rewards, _ = timed("stage2:rl", lambda: run_rl_training(
         seeds[2], model1, epochs=rl_epochs, batch_size=rl_batch, params_q=pq, weights=cw,
         solver_cfg=solver_cfg, reward_cfg=rc, sampler_cfg=sc, grad_mode=args.grad,
-        lr_schedule=args.rl_sched, checkpoint_dir=os.path.join(outdir, "rl_state"),
-        resume=args.resume, device=device))
+        lr_schedule=args.rl_sched, checkpoint_dir=os.path.join(rundir, "rl_state"),
+        resume=args.resume, device=device, mesh=mesh))
     if not mean_rewards:  # a resumed run that had already finished
         mean_rewards = [float("nan")]
     print(f"[stage2] {stage_s['stage2:rl']:.1f}s  mean reward "
@@ -225,7 +238,7 @@ def main():
         "imitation_restarts": restarts,
         "imitation_selection_success": sel_rates,
         "platform": platform,
-        "n_devices": 1,
+        "n_devices": 1 if mesh is None else mesh.world,
         "stage_seconds": stage_s,
     }
     trace_ctx.__exit__(None, None, None)
@@ -233,6 +246,8 @@ def main():
     with open(os.path.join(outdir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(f"[pipeline] done: {json.dumps(summary)}", flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -453,3 +453,53 @@ def test_new_entry_points_run_on_the_card_by_default(cuda):
         np.array([[0.0, -8.0, 0.0, 0.0, 6.0, 0.0, 0.05, 1.0, 0.4]]), generator=torch.Generator("cuda").manual_seed(0))
     assert log.states.device.type == "cuda" and log.states.dtype == torch.float32
     assert rollout.launches > n[0] and riccati_fused.launches > n[1]
+
+
+def test_parallel_sweep_on_card_matches_cpu(cuda):
+    """cfg.backward="parallel" (solver/parallel_riccati.py, plain PyTorch on
+    the card's library calls) against the same code on the CPU in f64: one
+    sweep on the solver's own trajectories (H=50, B=64) within 1e-9, and a
+    short solve (H=20, 8 iterations, K1 on the card): at least 24 of 32
+    lanes take the CPU's iterations and exit and end within 1e-9 of its
+    cost (a lane parts where a line-search test ties: one of 32 ended
+    6.8e-8 apart on an H100)."""
+    from learningagileflight_se3_torch.ops.inputs import bench_problems
+    from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, make_parallel_backward
+
+    P, W = QuadParams(), CostWeights()
+    C = SolverConfig(horizon=50, use_ddp=False, backward="parallel")
+    _, k2 = main_path_inputs(50, 64, device=cuda, iters=10)
+    sweep = make_parallel_backward(C, C.u_lb, C.u_ub)
+    out = {}
+    for dev in ("cpu", cuda):
+        a = [x.to(dev) for x in k2]
+        out[str(dev)] = sweep(derivatives(*a[:8], P, W, C), a[0][:, 17:].contiguous(), a[8][0])
+    for name, g, w in zip(("kk", "KK", "dV1", "dV2", "fail", "pg"), out["cuda"], out["cpu"]):
+        assert _rel_err(g, w) < 1e-9, name
+
+    C = SolverConfig(horizon=20, max_iters=8, use_ddp=False, backward="parallel")
+    sols = {}
+    n = rollout.launches
+    for dev in ("cpu", cuda):
+        sols[str(dev)] = make_batched_mpc_solver(P, W, C)(*bench_problems(32, dev, seed=1))
+    assert rollout.launches > n
+    a, b = sols["cuda"], sols["cpu"]
+    # the paths part only where a line-search or exit test ties (chip_smoke.py phase 9)
+    within = ((a.cost.cpu() - b.cost) / b.cost.abs().clamp_min(1.0)).abs() <= 1e-9
+    within &= (a.iterations.cpu() == b.iterations) & (a.status.cpu() == b.status)
+    assert int(within.sum()) >= 24, (a.cost, b.cost, a.iterations, b.iterations)
+
+
+def test_nccl_world_size_one_step_equals_unsharded(cuda):
+    """One NCCL rank on the card: the sharded RL step (the mesh, its
+    all-reduces and gathers) against the unsharded step in both grad modes
+    (parallel/dryrun.py, horizon 6, 3 iterations, 2 scenarios): the same
+    rewards, and the parameters within the dry run's float32 bound (the
+    reward's backward accumulates with atomics, so two runs may differ in
+    the last bits of a gradient, which Adam's first step can magnify)."""
+    from learningagileflight_se3_torch.parallel.dryrun import dryrun_multiprocess
+
+    report = dryrun_multiprocess(1, device="cuda", backend="nccl")
+    for mode, r in report.items():
+        assert r["reward_rel"] == 0.0 and r["param_abs"] <= 1.5e-4, (mode, r)
+        assert r["launches"][0][0] > 0 and r["launches"][0][1] > 0, (mode, r)

@@ -194,11 +194,18 @@ def test_replay_contract_through_the_port():
     assert rollout.plain_calls > plain[0] and riccati_fused.plain_calls > plain[1]
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """ExternalSimController, run_rl_training, run_pretraining,
-    run_imitation_training, make_closed_loop_sim and run_validation_sim run
-    on the card unless given device="cpu": without a card their default
-    raises before any work, and nothing runs on the CPU in its place."""
+    run_imitation_training, make_closed_loop_sim, run_validation_sim,
+    make_mesh, initialize_distributed (given the LAF_* variables) and the
+    two ablation scripts' mains run on the card unless given device="cpu":
+    without a card their default raises before any work, and nothing runs
+    on the CPU in its place."""
+    import importlib.util
+    import os
+
+    from learningagileflight_se3_torch.parallel.distributed import initialize_distributed
+    from learningagileflight_se3_torch.parallel.mesh import make_mesh
     from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
     from learningagileflight_se3_torch.sim.validation_sim import ValidationSimConfig, run_validation_sim
     from learningagileflight_se3_torch.train.imitation import run_imitation_training
@@ -221,6 +228,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_closed_loop_sim(load_dnn2())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_validation_sim(load_dnn2(), ValidationSimConfig(duration_sec=0.01))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    monkeypatch.setenv("LAF_COORDINATOR_ADDRESS", "file://" + str(tmp_path / "store"))
+    monkeypatch.setenv("LAF_NUM_PROCESSES", "2")
+    monkeypatch.setenv("LAF_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed()
+    scripts = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+    for name in ("torch_ablate_rl", "torch_ablate_imitation"):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(scripts, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(["--out", str(tmp_path / name)])
+        assert not os.path.exists(tmp_path / name)
+    assert not (tmp_path / "store").exists()
     assert (rollout.plain_calls, riccati_fused.plain_calls) == plain
     ctrl = ExternalSimController(load_dnn2(), final_point=np.zeros(3),
                                  gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)),
