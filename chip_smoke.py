@@ -7,7 +7,8 @@ stage-2 RL training of DNN1, the batched 100 Hz closed-loop flight that
 scores the shipped DNN2, stages 1 and 3 (pretraining, imitation), and the
 side paths (the validation flight, the omega-box continuation, the policy
 searches, the costates), the parallel-in-time sweep, multi-process
-data-parallel RL and the two ablation drivers, and fails (non-zero exit,
+data-parallel RL, the two ablation scripts and the card's f64 solve
+against the host's lifted-NLP oracle, and fails (non-zero exit,
 no result line) if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
@@ -122,6 +123,28 @@ Phases, each printing its numbers on lines of its own:
              and scripts/torch_ablate_imitation.py (3 frames, 2 epochs of 16
              scenarios) on the card, 16 evaluation scenarios, 100 simulation
              steps: the JAX records' JSON keys, finite values, launches
+  15 oracle  (a) the card's f64 solve against the port's lifted-NLP oracle
+             on the first scenario of each cell of benchmarks/bench_accuracy.py
+             (weights/accuracy_scenarios.npz rows 0, 8, 16, 24) at its
+             settings (H=50, max_iters=2000, no omega box, the cell's thrust
+             bound, the squared attitude term), cold from the midpoint and
+             the hover start, the lower cost kept: one batch of 4 lanes (2
+             scenarios x 2 starts) per thrust bound on K1 and K2; each
+             oracle runs on the host in a process of its own (--plain-side
+             oracle_<row>), started once phase 9's timed seed-2024 flight is
+             over, so that the timed phases 4, 6, 8 and that flight run
+             without them; per scenario the control MAE, relative cost gap,
+             oracle KKT and defect, active bounds, DDP status and
+             iterations; gated by bench_accuracy.py's ok rule (same-basin
+             MAE under 1e-3, a basin mismatch at most 1e-9 above the oracle,
+             an unconverged oracle within 0.1%) and, so that the f64 kernel
+             path is what is checked, the same-basin MAE under 1e-6 (the
+             first runs read 2e-9 to 9.6e-8); launches above 0 and no
+             plain-version call; the JAX package's record printed
+             beside it, not gated; (b) native/fastquad.cpp built with g++ and
+             its f64 plant against the port's rollout on the card (64 seeded
+             pairs at H=50, 1e-10) and its trajectory reward against the
+             port's (1e-9)
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of phase 4's solve, the main path, `launches_by_path` each path's
@@ -134,8 +157,8 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --phases 9,10   (phases 1 and 2 and the named ones only: a
                                               developer's partial run checks them and prints no
                                               result lines)
-       python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9, 10 and 11 start
-                                              for the CPU side of their comparisons)
+       python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9, 10, 11 and 15
+                                              start for the host side of their comparisons)
 """
 
 from __future__ import annotations
@@ -346,8 +369,55 @@ def compared_validation(device):
                 seconds=time.perf_counter() - t0)
 
 
+# Phase 15 holds the card's f64 solve against the port's lifted-NLP oracle
+# on the first scenario of each cell of benchmarks/bench_accuracy.py (rows of
+# weights/accuracy_scenarios.npz).  The oracle computes on the host by design
+# (scipy): one to two minutes a scenario on one core where its
+# shooting-seeded Newton pass converges, four and a half where trust-constr
+# takes over (the PyBullet-bounds aggressive scenario), so each runs in a
+# process of its own on one core, started once phase 9's timed seed-2024
+# flight is over: its time overlaps the card's later phases and leaves the
+# timed ones (4, 6, 8 and that flight) their host.
+ACCURACY_ROWS = (0, 8, 16, 24)
+ORACLE_MAXITER = 8000  # bench_accuracy.py's
+# bench_accuracy.py's same-basin gate is 1e-3; the card's f64 solve reads
+# 2e-9 to 9.6e-8 (PERF.md), so a kernel that lost digits passes 1e-3 but
+# not this
+SAME_BASIN_MAE_F64 = 1e-6
+NATIVE_PAIRS, NATIVE_H = 64, 50
+
+
+def accuracy_problem(row):
+    """(params, weights, cfg, cell name, args) of an exported accuracy
+    scenario at bench_accuracy.py's settings: H=50, max_iters=2000, no omega
+    box, the cell's thrust bound and the squared attitude term in both
+    variants; args = (x0, u_last, goal, tra_pos, tra_ang, t), numpy."""
+    from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
+    from learningagileflight_se3_torch.utils.weights import accuracy_scenarios
+
+    z = accuracy_scenarios()
+    cfg = SolverConfig(horizon=50, max_iters=2000, w_bound=float("inf"), u_ub=float(z["u_ub"][row]))
+    args = (z["x0"][row], np.zeros(4), z["goal"][row], np.zeros(3), z["tra_ang"][row], float(z["t"][row]))
+    return QuadParams(), CostWeights(), cfg, f"{z['variant'][row]}/{z['regime'][row]}", args
+
+
+def compared_oracle(row):
+    """The port's lifted-NLP oracle (host, float64) on accuracy scenario
+    `row`, as bench_accuracy.py calls it: its controls, cost, KKT residual,
+    defect, final method and the seconds it took."""
+    from learningagileflight_se3_torch.oracle import solve_lifted_oracle
+
+    params, weights, cfg, _, args = accuracy_problem(row)
+    t0 = time.perf_counter()
+    sol = solve_lifted_oracle(params, weights, cfg, *args, maxiter=ORACLE_MAXITER)
+    return dict(U=torch.from_numpy(sol.control_traj), cost=sol.cost, kkt=sol.kkt_residual,
+                viol=sol.constr_violation, method=str(getattr(sol.result, "method", "")),
+                seconds=time.perf_counter() - t0)
+
+
 PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect,
-               "validation": compared_validation}
+               "validation": compared_validation,
+               **{f"oracle_{row}": (lambda device, row=row: compared_oracle(row)) for row in ACCURACY_ROWS}}
 
 
 def reset_launches():
@@ -379,6 +449,7 @@ class Smoke:
         self.path_launches = {}  # path -> read_launches() over that path's run
         self.k2_inputs = {}      # B -> phase 3's K2 inputs (f64)
         self.plain_sides = {}    # name -> (CPU process, its result file)
+        self.deferred_sides = []  # plain sides started after phase 9's timed flight
 
     def check(self, ok, what):
         if not ok:
@@ -404,8 +475,12 @@ class Smoke:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         if os.path.exists(out):
             os.remove(out)
+        # the oracles are single-threaded scipy: one BLAS and OpenMP thread
+        # each, or the idle BLAS threads spin on the cores the card's host
+        # loop needs
+        env = dict(os.environ, OPENBLAS_NUM_THREADS="1", OMP_NUM_THREADS="1") if what.startswith("oracle") else None
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--plain-side", what, "--out", out],
-                                stdout=subprocess.DEVNULL)
+                                stdout=subprocess.DEVNULL, env=env)
         self.plain_sides[what] = (proc, out)
 
     def plain_side(self, what):
@@ -1080,6 +1155,8 @@ class Smoke:
             self.path_launches.setdefault("closed_loop", n)  # the first run: seed 2024
             beside = ("no other process of this script running" if name == "seed 2024" else
                       "beside the comparisons' busy CPU processes, 2 threads each"
+                      + (f", and phase 15's {len(self.deferred_sides)} oracles, one thread each"
+                         if self.deferred_sides else "")
                       + (", and with every kernel call counted" if trips else ""))
             out = summarize(metrics, trace.solver_iters, sim_steps=500, seed=seed, run=name, wall_s=wall,
                             launches=n, platform=torch.cuda.get_device_name(0))
@@ -1116,6 +1193,8 @@ class Smoke:
                 # seed 2024's time is taken: the CPU sides of the comparisons start
                 self.start_plain_side("closed_loop")
                 self.start_plain_side("collect")
+                for what in self.deferred_sides:
+                    self.start_plain_side(what)
                 # K1 and K2 against their plain versions on the inputs this
                 # flight's first two replans give them, the cold one and the
                 # warm-started one, each at its 10th DDP iteration (a solve's
@@ -1725,6 +1804,126 @@ class Smoke:
             log(f"ablation {name} ({' '.join(argv)}): {wall:.1f} s, launches K1 {n['K1']} K2 {n['K2']}; "
                 f"{json.dumps(out['results'])} [{self.smi}]")
 
+    # ---------------------------------------------------------- 15 oracle
+    def accuracy(self):
+        """(a) The card's f64 solve on K1 and K2 against the port's lifted-NLP
+        oracle (host processes started in phase 9, or here in a partial
+        run), under bench_accuracy.py's ok rule and the tighter same-basin
+        gate SAME_BASIN_MAE_F64."""
+        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+
+        f64 = dict(dtype=torch.float64, device="cuda")
+        groups = {}  # the thrust bound (a kernel constant) -> rows
+        for row in ACCURACY_ROWS:
+            groups.setdefault(accuracy_problem(row)[2].u_ub, []).append(row)
+        ddp = {}
+        plain0 = read_plain_calls()
+        reset_launches()
+        t0 = time.perf_counter()
+        for rows in groups.values():
+            params, weights, cfg, _, _ = accuracy_problem(rows[0])
+            # each scenario twice: cold from the midpoint (U_init = the
+            # midpoint init itself) and from the hover start
+            args = [np.stack([accuracy_problem(r)[4][j] for r in rows * 2]) for j in range(6)]
+            H, n = cfg.horizon, len(rows)
+            U0 = np.concatenate([np.full((n, H, 4), 0.5 * (cfg.u_lb + cfg.u_ub)),
+                                 np.full((n, H, 4), params.mass * params.g / 4)])
+            sol = make_batched_mpc_solver(params, weights, cfg)(
+                *[torch.as_tensor(a, **f64) for a in args], U_init=torch.as_tensor(U0, **f64))
+            cost = sol.cost.cpu().numpy()
+            for j, row in enumerate(rows):
+                k = j if cost[j] <= cost[j + n] else j + n
+                ddp[row] = dict(U=sol.control_traj[k].cpu().numpy(), cost=float(cost[k]),
+                                status=int(sol.status[k]), iters=int(sol.iterations[k]),
+                                converged=bool(sol.converged[k]), start="midpoint" if k < n else "hover",
+                                iters_both=(int(sol.iterations[j]), int(sol.iterations[j + n])))
+        wall = time.perf_counter() - t0
+        self.path_launches["oracle"] = n_l = read_launches()
+        log(f"oracle phase, card: {len(groups)} f64 solves of {2 * len(ACCURACY_ROWS) // len(groups)} lanes "
+            f"(H=50, max_iters=2000) in {wall:.2f} s, launches K1 {n_l['K1']} K2 {n_l['K2']} [{self.smi}]")
+        self.check(n_l["K1"] > 0 and n_l["K2"] > 0, f"phase 15 kernel launches {n_l}")
+        self.check(read_plain_calls() == plain0, "phase 15 moved a plain-version counter")
+
+        rows = []
+        for row in ACCURACY_ROWS:
+            ora, waited = self.plain_side(f"oracle_{row}")
+            _, _, cfg, name, _ = accuracy_problem(row)
+            d, U_star = ddp[row], ora["U"].numpy()
+            n_active = int(np.sum((np.abs(U_star - cfg.u_lb) < 1e-7) | (np.abs(U_star - cfg.u_ub) < 1e-7)))
+            mae = float(np.mean(np.abs(d["U"] - U_star)))
+            gap = (d["cost"] - ora["cost"]) / abs(ora["cost"])
+            rows.append(dict(mae=mae, gap=gap, kkt=ora["kkt"], n_active=n_active))
+            log(f"oracle {name} (row {row}): control MAE {mae:.3e}, rel cost gap {gap:+.3e}, oracle KKT "
+                f"{ora['kkt']:.1e} defect {ora['viol']:.1e} ({ora['method']}, {ora['seconds']:.1f} s on one host "
+                f"core, waited {waited:.1f} s), active bounds {n_active}/200; DDP status {d['status']} after "
+                f"{d['iters']} iterations from the {d['start']} start (midpoint {d['iters_both'][0]}, hover "
+                f"{d['iters_both'][1]}), converged {d['converged']}, cost {d['cost']:.10f} oracle "
+                f"{ora['cost']:.10f} [{self.smi}]")
+            self.check(np.isfinite(d["cost"]) and np.isfinite(d["U"]).all(), f"phase 15 {name}: DDP not finite")
+        # bench_accuracy.py's ok rule: an unconverged oracle proves nothing
+        # tight, so DDP need only be within 0.1% of its best iterate; on the
+        # rest, a control MAE of 1e-4 or more is another basin, where DDP
+        # must not lose to the oracle by more than 1e-9
+        unconv_ok = all(r["gap"] <= 1e-3 for r in rows if r["kkt"] > 1e-6)
+        conv = [r for r in rows if r["kkt"] <= 1e-6]
+        maes = np.array([r["mae"] for r in conv if r["mae"] < 1e-4])
+        mism_ok = all(r["gap"] <= 1e-9 for r in conv if r["mae"] >= 1e-4)
+        n_active = sum(r["n_active"] > 0 for r in rows)
+        ok = maes.size > 0 and float(maes.max()) < 1e-3 and mism_ok and n_active >= 1 and unconv_ok
+        log(f"oracle, bench_accuracy.py's rule: {maes.size} same-basin scenarios, mean MAE "
+            f"{float(maes.mean()) if maes.size else float('nan'):.3e}, {len(conv) - maes.size} basin mismatches "
+            f"(DDP never worse: {mism_ok}), {len(rows) - len(conv)} oracle unconverged (DDP within 0.1%: "
+            f"{unconv_ok}), {n_active} with active bounds: ok {ok}; same-basin MAE at most "
+            f"{float(maes.max()) if maes.size else float('nan'):.3e} (gate {SAME_BASIN_MAE_F64:.0e})")
+        with open(os.path.join(REPO, "artifacts", "bench_accuracy.json")) as f:
+            rec = json.load(f)
+        log("oracle, the JAX package's record (artifacts/bench_accuracy.json: its single-problem solver "
+            "against its CPU f64 oracle on all 32 scenarios; not gated): " + json.dumps(
+                {k: rec[k] for k in ("value", "mae_median", "max_mae", "n_same_basin", "n_basin_mismatch",
+                                     "n_oracle_unconverged", "max_oracle_kkt")}))
+        self.check(ok, "phase 15: the card's f64 solve fails bench_accuracy.py's rule against the oracle")
+        self.check(maes.size > 0 and float(maes.max()) < SAME_BASIN_MAE_F64,
+                   f"phase 15: a same-basin control MAE is not under {SAME_BASIN_MAE_F64:.0e}")
+
+    def native_plant(self):
+        """(b) native/fastquad.cpp's f64 plant and reward against the port's
+        rollout and reward on the card."""
+        from learningagileflight_se3_torch import native
+        from learningagileflight_se3_torch.config import QuadParams, RewardConfig
+        from learningagileflight_se3_torch.dynamics.quadrotor import rollout
+        from learningagileflight_se3_torch.geometry.collision import trajectory_reward
+        from learningagileflight_se3_torch.geometry.gate import gate_from_width, rotate_y
+
+        t0 = time.perf_counter()
+        lib = native.library()  # a failed build raises and fails the phase
+        log(f"native: {os.path.relpath(lib._name, REPO)} built and loaded in {time.perf_counter() - t0:.2f} s")
+        params, rng = QuadParams(), np.random.default_rng(15)
+        x0 = np.zeros((NATIVE_PAIRS, 13))
+        x0[:, 0:3] = rng.uniform(-2, 2, (NATIVE_PAIRS, 3))
+        q = np.concatenate([np.ones((NATIVE_PAIRS, 1)), 0.1 * rng.normal(size=(NATIVE_PAIRS, 3))], axis=1)
+        x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+        x0[:, 10:13] = 0.1 * rng.normal(size=(NATIVE_PAIRS, 3))
+        U = params.mass * params.g / 4 + rng.uniform(-0.02, 0.02, (NATIVE_PAIRS, NATIVE_H, 4))
+        f64 = dict(dtype=torch.float64, device="cuda")
+        X = rollout(torch.as_tensor(x0, **f64), torch.as_tensor(U, **f64), 0.1, params)
+        X_host = X.cpu().numpy()
+        X_native = np.stack([native.rollout(x0[i], U[i], 0.1, params) for i in range(NATIVE_PAIRS)])
+        err_X = float(np.abs(X_host - X_native).max())
+        width = rng.uniform(0.5, 1.25, NATIVE_PAIRS)
+        pitch = rng.uniform(-0.6, 0.6, NATIVE_PAIRS)
+        gates = rotate_y(gate_from_width(torch.as_tensor(width, **f64)), torch.as_tensor(pitch, **f64))
+        goals = torch.as_tensor(rng.uniform(-1, 1, (NATIVE_PAIRS, 3)) + [0.0, 4.0, 0.0], **f64)
+        reward = trajectory_reward(X, gates, goals, RewardConfig(), NATIVE_H)[0].cpu().numpy()
+        gates_h, goals_h = gates.cpu().numpy(), goals.cpu().numpy()
+        reward_native = np.array([native.trajectory_reward(X_host[i], gates_h[i], goals_h[i], NATIVE_H)[0]
+                                  for i in range(NATIVE_PAIRS)])
+        err_r = float(np.abs(reward - reward_native).max())
+        log(f"native plant against the card's f64 rollout, {NATIVE_PAIRS} pairs at H={NATIVE_H} (states up to "
+            f"{np.abs(X_native).max():.2f}): max abs {err_X:.3e} (gate 1e-10); trajectory reward (from "
+            f"{reward_native.min():.3f} to {reward_native.max():.3f}): max abs {err_r:.3e} (gate 1e-9) [{self.smi}]")
+        self.check(np.isfinite(X_host).all() and err_X <= 1e-10, f"phase 15 native plant differs by {err_X:.3e}")
+        self.check(np.isfinite(reward).all() and err_r <= 1e-9, f"phase 15 native reward differs by {err_r:.3e}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1739,12 +1938,12 @@ def main():
                     help="a developer's switch: comma-separated phase numbers for a partial run, which "
                          "prints no result lines")
     ap.add_argument("--plain-side", choices=sorted(PLAIN_SIDES), default=None,
-                    help="run one comparison's plain path on the CPU and save it to --out (phases 9, 10 and 11 "
-                         "start this in a process of its own)")
+                    help="run one comparison's plain path on the CPU and save it to --out (phases 9, 10, 11 "
+                         "and 15 start this in a process of its own)")
     ap.add_argument("--out", default=None, help="the result file of --plain-side")
     args = ap.parse_args()
     if args.plain_side:
-        torch.set_num_threads(2)
+        torch.set_num_threads(1 if args.plain_side.startswith("oracle") else 2)
         torch.save(PLAIN_SIDES[args.plain_side]("cpu"), args.out)
         return 0
     only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
@@ -1758,13 +1957,17 @@ def main():
 
 def drive(s, only):
     """Run the phases (all, or phases 1, 2 and `only`) and print the result lines."""
+    if only is None or 15 in only:  # phase 15's host side, overlapping phases 9 to 14
+        s.deferred_sides = [f"oracle_{row}" for row in ACCURACY_ROWS]
     phases = [("1 device", s.device), ("2 build", s.build), ("3 kernels", s.kernels_vs_plain),
               ("4 solve", s.solve), ("5 paths", s.paths), ("6 tick", s.tick), ("7 K3", s.k3),
               ("8 train", s.train), ("9 closed loop", s.closed_loop), ("10 stages", s.stages),
               ("11 side paths", s.side_paths), ("12 parallel sweep", s.parallel_sweep),
               ("13 multi-process RL", s.multiprocess_rl), ("14 ablations", s.ablations),
               # after phases 10 to 14, so that its CPU side has had the time it needs
-              ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths)]
+              ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths),
+              ("15 oracle, the card's f64 solve against the lifted oracle", s.accuracy),
+              ("15 oracle, the native plant against the card's", s.native_plant)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)

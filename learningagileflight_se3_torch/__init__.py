@@ -23,8 +23,13 @@ Layering (bottom -> top):
   train/     the three training stages (pretrain.py, rl.py, imitation.py)
   parallel/  multi-process data parallelism: the scenario mesh, the process
              group, the sharded dry run
-  sim/       traversal-time fixed point and the external-simulator tick
-  utils/     flax -> torch weight conversion, training-state checkpoints
+  sim/       traversal-time fixed point, the external-simulator tick, the
+             closed loop, the validation flight and the PyBullet harness
+  oracle/    the independent yardsticks, on the host in float64: the numpy
+             plant and cost, the shooting and lifted-NLP oracles
+  native.py  bindings of the C++ plant, sampler and reward (native/fastquad.cpp)
+  utils/     flax -> torch weight conversion, training-state checkpoints,
+             the URDF / OBJ asset generators
 
 A tensor on the CPU runs through the plain PyTorch versions; a tensor on a
 CUDA device runs through the kernels (built with nvcc at first use).

@@ -1,9 +1,10 @@
 """Batched control-limited DDP for the gate-traversal MPC: public entry.
 
-Port of the batched entry of `learningagileflight_se3_tpu/solver/ilqr.py`.
-The single-problem solver of the JAX package is not ported: a batch of one
-is the single solve.  The solve runs on the device its tensors lie on (the
-kernels for CUDA tensors, their plain versions for CPU tensors).
+Port of the entries of `learningagileflight_se3_tpu/solver/ilqr.py`: the
+batched solver, and `make_mpc_solver`, the single-problem solve as a batch
+of one through it.  The batched solve runs on the device its tensors lie on
+(the kernels for CUDA tensors, their plain versions for CPU tensors); the
+single-problem solve on the card unless given device="cpu".
 """
 
 from __future__ import annotations
@@ -43,3 +44,30 @@ def make_batched_mpc_solver(params: QuadParams, weights: CostWeights, cfg: Solve
     from learningagileflight_se3_torch.solver.ilqr_batched import make_batched_solver
 
     return make_batched_solver(params, weights, cfg, return_gains=return_gains)
+
+
+def make_mpc_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig,
+                    return_gains: bool = True, device="cuda", dtype=torch.float64):
+    """The single-problem solver: solve(x0[13], u_last[4], goal_pos[3],
+    tra_pos[3], tra_ang[3], t, U_init=None|[H,4]) -> MPCSolution with no
+    batch axis (`gains_K` (H, 4, 17) when return_gains, else (0,)).
+
+    A batch of one through the batched solver.  The inputs (tensors, arrays
+    or lists) are moved to `device` in `dtype`: the card unless the caller
+    passes device="cpu", and without a card the default raises here.  The
+    JAX package's single-problem solver is another code path under the same
+    rules (a `lax.while_loop` of its own); the port has one solver."""
+    from learningagileflight_se3_torch.utils.device import resolve_device
+
+    like = dict(dtype=dtype, device=resolve_device(device))
+    solve_batch = make_batched_mpc_solver(params, weights, cfg, return_gains=return_gains)
+
+    def solve(x0, u_last, goal_pos, tra_pos, tra_ang, t, U_init=None):
+        one = lambda a: torch.as_tensor(a, **like)[None]  # noqa: E731
+        sol = solve_batch(one(x0), one(u_last), one(goal_pos), one(tra_pos), one(tra_ang),
+                          one(t), None if U_init is None else one(U_init))
+        lane = {k: v[0] for k, v in sol._asdict().items() if k not in ("gains_K", "ls_evals")}
+        gains = sol.gains_K[0] if return_gains else sol.gains_K
+        return MPCSolution(gains_K=gains, ls_evals=sol.ls_evals, **lane)
+
+    return solve

@@ -5,7 +5,9 @@ JAX package's `scripts/export_torch_weights.py` writes their raw arrays to
 an npz under `weights/` (keys like "params/Dense_0/kernel"), which this
 module reads without JAX.  The same script writes the scenarios and the gate
 noise that the JAX package's closed-loop benchmark draws for its two
-recorded seeds (`bench_scenarios`).
+recorded seeds (`bench_scenarios`), and `scripts/export_accuracy_scenarios.py`
+the 32 problems of the JAX package's accuracy benchmark
+(`accuracy_scenarios`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ NN_PRE_DNN1 = os.path.join(WEIGHTS_DIR, "nn_pre_dnn1.npz")    # after pretrainin
 NN_DEEP_DNN1 = os.path.join(WEIGHTS_DIR, "nn_deep_dnn1.npz")  # after RL
 
 BENCH_SEEDS = (2024, 4096)
+ACCURACY_SCENARIOS = os.path.join(WEIGHTS_DIR, "accuracy_scenarios.npz")
 
 
 def bench_scenarios_path(seed: int) -> str:
@@ -35,6 +38,15 @@ def bench_scenarios(path: str):
     scenarios and the clipped gate velocity noise of one exported seed."""
     with np.load(path) as z:
         return z["scenarios"], z["gate_noise"]
+
+
+def accuracy_scenarios(path: str = ACCURACY_SCENARIOS) -> dict:
+    """benchmarks/bench_accuracy.py's 32 problems, numpy: x0 (32, 13), goal,
+    tra_ang (32, 3), t, u_ub (32,) float64 and the cell of each row,
+    variant ("main" / "pybullet_bounds") and regime ("nominal" /
+    "aggressive"), 8 rows a cell."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 _KEY = re.compile(r"(?:^|/)Dense_(\d+)/(kernel|bias)$")

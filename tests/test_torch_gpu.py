@@ -455,6 +455,24 @@ def test_new_entry_points_run_on_the_card_by_default(cuda):
     assert rollout.launches > n[0] and riccati_fused.launches > n[1]
 
 
+def test_single_solve_runs_on_the_card_by_default(cuda):
+    """make_mpc_solver given numpy inputs and no `device` solves on the card,
+    through K1 and K2, and lands where its CPU twin does (f64)."""
+    from learningagileflight_se3_torch.solver.ilqr import make_mpc_solver
+
+    x0 = np.zeros(13)
+    x0[0:3], x0[6] = [0.0, -8.0, 0.0], 1.0
+    args = (x0, np.zeros(4), np.array([0.0, 8.0, 0.0]), np.zeros(3), np.array([0.0, 0.6, 0.0]), 1.0)
+    cfg = SolverConfig(horizon=15, max_iters=300, w_bound=float("inf"))
+    n = (rollout.launches, riccati_fused.launches)
+    got = make_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=False)(*args)
+    assert got.control_traj.device.type == "cuda" and got.control_traj.dtype == torch.float64
+    assert rollout.launches > n[0] and riccati_fused.launches > n[1]
+    ref = make_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=False, device="cpu")(*args)
+    assert bool(got.converged) and bool(ref.converged)
+    np.testing.assert_allclose(got.control_traj.cpu().numpy(), ref.control_traj.numpy(), rtol=0, atol=1e-6)
+
+
 def test_parallel_sweep_on_card_matches_cpu(cuda):
     """cfg.backward="parallel" (solver/parallel_riccati.py, plain PyTorch on
     the card's library calls) against the same code on the CPU in f64: one

@@ -23,7 +23,7 @@ from learningagileflight_se3_tpu.models import sampler as jsampler
 from learningagileflight_se3_tpu.sim.tsolver import make_traversal_time_solver as jtsolver
 from learningagileflight_se3_tpu.utils.checkpoint import load_params
 
-from learningagileflight_se3_torch.config import SamplerConfig, SolverConfig, Variant
+from learningagileflight_se3_torch.config import CostWeights, QuadParams, SamplerConfig, SolverConfig, Variant
 from learningagileflight_se3_torch.geometry import gate as tgate
 from learningagileflight_se3_torch.models import mlp as tmlp
 from learningagileflight_se3_torch.models import sampler as tsampler
@@ -197,7 +197,8 @@ def test_replay_contract_through_the_port():
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """ExternalSimController, run_rl_training, run_pretraining,
     run_imitation_training, make_closed_loop_sim, run_validation_sim,
-    make_mesh, initialize_distributed (given the LAF_* variables) and the
+    make_mesh, initialize_distributed (given the LAF_* variables), the
+    single-problem solver make_mpc_solver (whatever its inputs) and the
     two ablation scripts' mains run on the card unless given device="cpu":
     without a card their default raises before any work, and nothing runs
     on the CPU in its place."""
@@ -208,6 +209,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from learningagileflight_se3_torch.parallel.mesh import make_mesh
     from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
     from learningagileflight_se3_torch.sim.validation_sim import ValidationSimConfig, run_validation_sim
+    from learningagileflight_se3_torch.solver.ilqr import make_mpc_solver
     from learningagileflight_se3_torch.train.imitation import run_imitation_training
     from learningagileflight_se3_torch.train.pretrain import run_pretraining
     from learningagileflight_se3_torch.train.rl import run_rl_training
@@ -230,6 +232,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         run_validation_sim(load_dnn2(), ValidationSimConfig(duration_sec=0.01))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mpc_solver(QuadParams(), CostWeights(), SolverConfig(horizon=4, max_iters=2))
     monkeypatch.setenv("LAF_COORDINATOR_ADDRESS", "file://" + str(tmp_path / "store"))
     monkeypatch.setenv("LAF_NUM_PROCESSES", "2")
     monkeypatch.setenv("LAF_PROCESS_ID", "0")
@@ -249,6 +253,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                  gate_motion=lambda i: (np.zeros((4, 3)), np.zeros(3)),
                                  w_rot=0.0, device="cpu")
     assert ctrl.device == torch.device("cpu")
+    sol = make_mpc_solver(QuadParams(), CostWeights(), SolverConfig(horizon=4, max_iters=2), device="cpu")(
+        np.eye(13)[6], np.zeros(4), [0.0, 4.0, 0.0], np.zeros(3), [0.0, 0.3, 0.0], 1.0)
+    assert sol.control_traj.device.type == "cpu" and sol.control_traj.dtype == torch.float64
     sim = make_closed_loop_sim(load_dnn2(), solver_cfg=SolverConfig(horizon=4, max_iters=2), steps=1,
                                device="cpu")
     assert sim(np.zeros((1, 9)) + [0, -8, 0, 0, 6, 0, 0, 1, 0.3], generator=torch.Generator()).states.device.type == "cpu"
