@@ -7,9 +7,11 @@ stage-2 RL training of DNN1, the batched 100 Hz closed-loop flight that
 scores the shipped DNN2, stages 1 and 3 (pretraining, imitation), and the
 side paths (the validation flight, the omega-box continuation, the policy
 searches, the costates), the parallel-in-time sweep, multi-process
-data-parallel RL, the two ablation scripts and the card's f64 solve
-against the host's lifted-NLP oracle, and fails (non-zero exit,
-no result line) if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
+data-parallel RL, the two ablation scripts, the card's f64 solve
+against the host's lifted-NLP oracle and the benchmarks
+(learningagileflight_se3_torch/benchmarks/), and fails (non-zero exit, no
+result line) if any phase fails or if there is no CUDA device.  Imports
+nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
@@ -21,9 +23,19 @@ Phases, each printing its numbers on lines of its own:
              and f32; each f32 time (CUDA events, the card's time alone)
              beside its bound at that shape, the time of the one-thread-per-
              scenario kernel it replaced, and the plain version's
-  4 solve    B=2048, H=50, f32 at the bench.py config: solves/s, iterations,
-             line-search trips, status histogram, quality against a golden run
-  5 paths    kernel path (CUDA) against plain path (CPU) at H=20, B=256
+  4 solve    the solve bench (benchmarks/solve.py, bench.py's protocol) on the
+             JAX benchmark's own problems (weights/bench_problems.npz:
+             PRNGKey(0) and PRNGKey(100..102)), B=2048, H=50, f32: its JSON
+             line (solves/s synced and back to back, iterations, line-search
+             trips, status histogram, quality against the 150-iteration
+             golden run, the certified tier, the r3-compat row); gates:
+             frac_within_1pct_of_converged >= 0.90 (the JAX record 0.9551),
+             the certified tier's >= 0.98, every cost finite
+  5 paths    the kernel-check bench (benchmarks/kernel_check.py,
+             check_pallas_tpu.py's protocol): the kernel path (CUDA) against
+             the plain path (CPU) on check_pallas_tpu.py's 256 PRNGKey(7)
+             problems (weights/bench_problems.npz) at H=20, f32, under its
+             ok rule
   6 tick     the replay contract through ExternalSimController on CUDA (f64
              and f32), then the deployed budget's per-tick latency
   7 K3       the unfused backward sweep against its plain version (f64, f32)
@@ -123,8 +135,9 @@ Phases, each printing its numbers on lines of its own:
              and scripts/torch_ablate_imitation.py (3 frames, 2 epochs of 16
              scenarios) on the card, 16 evaluation scenarios, 100 simulation
              steps: the JAX records' JSON keys, finite values, launches
-  15 oracle  (a) the card's f64 solve against the port's lifted-NLP oracle
-             on the first scenario of each cell of benchmarks/bench_accuracy.py
+  15 oracle  (a) the accuracy bench's functions (benchmarks/accuracy.py):
+             the card's f64 solve against the port's lifted-NLP oracle on
+             the first problem of each cell of benchmarks/bench_accuracy.py
              (weights/accuracy_scenarios.npz rows 0, 8, 16, 24) at its
              settings (H=50, max_iters=2000, no omega box, the cell's thrust
              bound, the squared attitude term), cold from the midpoint and
@@ -145,10 +158,25 @@ Phases, each printing its numbers on lines of its own:
              its f64 plant against the port's rollout on the card (64 seeded
              pairs at H=50, 1e-10) and its trajectory reward against the
              port's (1e-9)
+  16 benchmarks  the latency bench (benchmarks/latency.py: bench_latency.py's
+             warm-started H=50 queries at max_iters=5 on its PRNGKey(3)
+             problem, B=1 and the B=128 tile) and the realtime bench
+             (benchmarks/realtime.py: 2 x 50 ticks of ExternalSimController
+             against the host plant, the device link's round trip, the
+             Kalman step and the t-solver, and the 128 seed-2024 scenarios x
+             500 steps at the same config) in full, each with its JSON line;
+             gates: realtime success >= 0.90 and within 0.05 of the JAX
+             record 0.96875, at most 2 diverged, K1 and K2 launched in every
+             part and no plain-version call (`ok`, the 100 ms budget, is
+             printed, not gated); then the scaling bench's silicon row (one
+             NCCL rank, 2048 lanes, H=50, 30 iterations) and its solve rows
+             on the card (one gloo rank against two sharing the card, 64
+             lanes, H=20), the ranks' launches counted
 
 The last three lines are the kernels JSON (each row's `launches` is the
-count of phase 4's solve, the main path, `launches_by_path` each path's
-own; `bound_ms` the least time the card could take at B=2048, `library_ms`
+count of one synced solve of phase 4's solve bench at bench.py's config,
+the main path; `launches_by_path` each path's own, "solve_bench" the whole
+solve bench's; `bound_ms` the least time the card could take at B=2048, `library_ms`
 null: no single PyTorch call computes these functions), the nvidia-smi line
 and {"ok": true, "device": {...}}.  Every time is printed with the card's
 nvidia-smi name and power limit.
@@ -370,49 +398,33 @@ def compared_validation(device):
 
 
 # Phase 15 holds the card's f64 solve against the port's lifted-NLP oracle
-# on the first scenario of each cell of benchmarks/bench_accuracy.py (rows of
+# on the first problem of each cell of the accuracy bench
+# (learningagileflight_se3_torch/benchmarks/accuracy.py, rows of
 # weights/accuracy_scenarios.npz).  The oracle computes on the host by design
-# (scipy): one to two minutes a scenario on one core where its
+# (scipy): one to two minutes a problem on one core where its
 # shooting-seeded Newton pass converges, four and a half where trust-constr
-# takes over (the PyBullet-bounds aggressive scenario), so each runs in a
+# takes over (the PyBullet-bounds aggressive problem), so each runs in a
 # process of its own on one core, started once phase 9's timed seed-2024
 # flight is over: its time overlaps the card's later phases and leaves the
 # timed ones (4, 6, 8 and that flight) their host.
 ACCURACY_ROWS = (0, 8, 16, 24)
-ORACLE_MAXITER = 8000  # bench_accuracy.py's
 # bench_accuracy.py's same-basin gate is 1e-3; the card's f64 solve reads
 # 2e-9 to 9.6e-8 (PERF.md), so a kernel that lost digits passes 1e-3 but
 # not this
 SAME_BASIN_MAE_F64 = 1e-6
 NATIVE_PAIRS, NATIVE_H = 64, 50
-
-
-def accuracy_problem(row):
-    """(params, weights, cfg, cell name, args) of an exported accuracy
-    scenario at bench_accuracy.py's settings: H=50, max_iters=2000, no omega
-    box, the cell's thrust bound and the squared attitude term in both
-    variants; args = (x0, u_last, goal, tra_pos, tra_ang, t), numpy."""
-    from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
-    from learningagileflight_se3_torch.utils.weights import accuracy_scenarios
-
-    z = accuracy_scenarios()
-    cfg = SolverConfig(horizon=50, max_iters=2000, w_bound=float("inf"), u_ub=float(z["u_ub"][row]))
-    args = (z["x0"][row], np.zeros(4), z["goal"][row], np.zeros(3), z["tra_ang"][row], float(z["t"][row]))
-    return QuadParams(), CostWeights(), cfg, f"{z['variant'][row]}/{z['regime'][row]}", args
+# phase 16 holds the realtime bench's success rate against the JAX
+# package's record of the same scenarios and config
+# (artifacts/bench_realtime.json)
+REALTIME_JAX_SUCCESS = 0.96875
 
 
 def compared_oracle(row):
-    """The port's lifted-NLP oracle (host, float64) on accuracy scenario
-    `row`, as bench_accuracy.py calls it: its controls, cost, KKT residual,
-    defect, final method and the seconds it took."""
-    from learningagileflight_se3_torch.oracle import solve_lifted_oracle
+    """The port's lifted-NLP oracle on accuracy problem `row` (the accuracy
+    bench's compared_oracle; imported here, at the call)."""
+    from learningagileflight_se3_torch.benchmarks.accuracy import compared_oracle
 
-    params, weights, cfg, _, args = accuracy_problem(row)
-    t0 = time.perf_counter()
-    sol = solve_lifted_oracle(params, weights, cfg, *args, maxiter=ORACLE_MAXITER)
-    return dict(U=torch.from_numpy(sol.control_traj), cost=sol.cost, kkt=sol.kkt_residual,
-                viol=sol.constr_violation, method=str(getattr(sol.result, "method", "")),
-                seconds=time.perf_counter() - t0)
+    return compared_oracle(row)
 
 
 PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect,
@@ -627,101 +639,46 @@ class Smoke:
         return errs
 
     # ------------------------------------------------------------- 4 solve
-    def _bench_args(self, seed, B, device, generator_device="cuda"):
-        from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
-
-        g = torch.Generator(device=generator_device).manual_seed(seed)
-        scen = sample_scenarios(g, B).to(device)
-        probs = scenario_to_problem(scen)
-        x0 = probs["x0"]
-        zeros = torch.zeros((B, 1), dtype=scen.dtype, device=device)
-        tra_ang = torch.cat([zeros, scen[:, 8:9] * 0.5, zeros], dim=1)
-        t = torch.clamp(torch.linalg.vector_norm(x0[:, 0:3], dim=1) / 4.0, 2.0, 4.0)
-        return (x0, torch.zeros((B, 4), dtype=scen.dtype, device=device), probs["goal_pos"],
-                torch.zeros((B, 3), dtype=scen.dtype, device=device), tra_ang, t)
-
     def solve(self):
-        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
-        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        """bench.py's protocol on its own problems through the solve bench
+        (benchmarks/solve.py) at full width: B=2048, H=50, f32."""
+        from learningagileflight_se3_torch.benchmarks import solve
 
-        B = 2048
-        cfg = SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4,
-                           ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
-        solve = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)
-        warm = solve(*self._bench_args(0, B, "cuda"))
-        torch.cuda.synchronize()
-        reps = [self._bench_args(100 + i, B, "cuda") for i in range(3)]
         plain0 = read_plain_calls()
         reset_launches()
-        times, sols = [], []
-        for a in reps:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sols.append(solve(*a))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        self.path_launches["solve"] = n = read_launches()
-        launches = (n["K1"], n["K2"])
-        self.check(launches[0] > 0 and launches[1] > 0, f"phase 4 kernel launches {launches}")
-        self.check(read_plain_calls() == plain0, "phase 4 moved a plain-version counter")
-        s = sols[0]
-        hist = torch.bincount(s.status.long(), minlength=5).tolist()
-        log(f"solve: B={B} H=50 f32; rep times {[round(x, 4) for x in times]} s; "
-            f"{B / min(times):.1f} solves/s (synced, best of 3); first call {warm.iterations.float().mean().item():.1f} "
-            f"iters [{self.smi}]")
-        log(f"solve: mean iters {s.iterations.float().mean().item():.2f} max {int(s.iterations.max())}; "
-            f"line-search trips {int(s.ls_evals)}; status histogram {hist}; "
-            f"converged_frac {s.converged.float().mean().item():.4f}")
-        log(f"solve: launches in the 3 timed reps K1 {launches[0]} K2 {launches[1]}; "
-            f"plain calls unchanged {read_plain_calls() == plain0}")
-        golden = make_batched_mpc_solver(QuadParams(), CostWeights(), SolverConfig(
-            horizon=50, max_iters=150, tol=1e-4, gtol=3e-4, ls_adaptive=False, ls_max_trips=14))
-        t0 = time.perf_counter()
-        g = golden(*reps[0])
-        torch.cuda.synchronize()
-        Jg, Jb = g.cost.double().cpu().numpy(), s.cost.double().cpu().numpy()
-        excess = (Jb - Jg) / np.maximum(np.abs(Jg), 1e-6)
-        log(f"solve: golden (150 iters, full ladder) {time.perf_counter() - t0:.2f} s, "
-            f"converged {g.converged.float().mean().item():.4f}; frac_within_1pct {(excess < 0.01).mean():.4f} "
-            f"frac_within_1e3 {(excess < 1e-3).mean():.4f} median excess {np.median(excess):.3e} "
-            f"q90 {np.percentile(excess, 90):.3e} [{self.smi}]")
-        self.check(bool(np.isfinite(Jb).all()) and s.control_traj.shape == (B, 50, 4),
-                   "phase 4 solution not finite or misshapen")
+        out = solve.run("cuda")
+        self.path_launches["solve_bench"] = read_launches()
+        rep = out["launches"]["sync_rep"]  # one synced solve at the bench config: the main path
+        self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=0)
+        print(json.dumps(out), flush=True)
+        self.check(min(n["K1"], n["K2"]) > 0, f"phase 4 kernel launches {n}")
+        self.check(read_plain_calls() == plain0 and rep["K1_plain"] == rep["K2_plain"] == 0,
+                   "phase 4 moved a plain-version counter")
+        q, cert = out["frac_within_1pct_of_converged"], out["certified_tier"]["frac_within_1pct"]
+        log(f"solve: {out['value']} solves/s back to back, {out['sync_solves_per_sec']} synced; frac_within_1pct "
+            f"{q} (gate 0.90; the JAX record 0.9551 on the same problems), certified tier {cert} (gate 0.98), "
+            f"{out['n_nonfinite_costs']} non-finite costs; launches of one synced solve K1 {n['K1']} K2 {n['K2']}, "
+            f"of the whole bench {self.path_launches['solve_bench']} [{self.smi}]")
+        self.check(q >= 0.90, f"phase 4 frac_within_1pct_of_converged {q} < 0.90")
+        self.check(cert >= 0.98, f"phase 4 certified tier frac_within_1pct {cert} < 0.98")
+        self.check(out["n_nonfinite_costs"] == 0, f"phase 4: {out['n_nonfinite_costs']} non-finite costs")
 
     # ------------------------------------------------------------- 5 paths
     def paths(self):
-        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
-        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        """check_pallas_tpu.py's check through the kernel-check bench
+        (benchmarks/kernel_check.py): the kernel path (CUDA) against the
+        plain path (CPU) on its 256 PRNGKey(7) problems at H=20, f32."""
+        from learningagileflight_se3_torch.benchmarks import kernel_check
 
-        B = 256
-        cfg = SolverConfig(horizon=20, max_iters=60, tol=1e-4, gtol=3e-4)
-        solve = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)
-        args = self._bench_args(7, B, "cpu", generator_device="cpu")
-        t0 = time.perf_counter()
-        ks = solve(*[a.cuda() for a in args])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ps = solve(*args)
-        t2 = time.perf_counter()
-        conv_k, conv_p = ks.converged.cpu().numpy(), ps.converged.numpy()
-        both = conv_k & conv_p
-        Jk, Jp = ks.cost.double().cpu().numpy(), ps.cost.double().numpy()
-        cost_rel = np.abs(Jk - Jp) / np.maximum(np.abs(Jp), 1.0)
-        mae = np.abs(ks.control_traj.double().cpu().numpy() - ps.control_traj.double().numpy()).mean(axis=(1, 2))
-        both_frac = float(both.mean())
-        med_rel = float(np.median(cost_rel[both])) if both.any() else float("inf")
-        med_mae = float(np.median(mae[both])) if both.any() else float("inf")
-        same_basin = float((cost_rel[both] < 1e-4).mean()) if both.any() else 0.0
-        q90 = float(np.percentile(cost_rel[both], 90)) if both.any() else float("inf")
-        tail = cost_rel > 1e-4
-        unexplained = int((tail & ~(mae > 1e-2) & both).sum())
-        log(f"paths: kernel {t1 - t0:.2f} s (CUDA f32), plain {t2 - t1:.2f} s (CPU f32); "
-            f"both_converged {both_frac:.4f} median cost rel {med_rel:.3e} median control MAE {med_mae:.3e} "
-            f"same_basin {same_basin:.4f} q90 cost rel {q90:.3e}; tail {int(tail.sum())} lanes: "
-            f"basin flips {int((tail & (mae > 1e-2)).sum())}, not both converged {int((tail & ~both).sum())}, "
-            f"unexplained {unexplained}")
-        self.check(both_frac >= 0.5 and med_rel < 1e-5 and med_mae < 1e-4 and same_basin >= 0.85
-                   and unexplained == 0, "phase 5 kernel path disagrees with the plain path")
+        reset_launches()
+        out = kernel_check.run("cuda")
+        self.path_launches["kernel_check"] = n = read_launches()
+        print(json.dumps(out), flush=True)
+        log(f"paths: kernel {out['kernel_path_s']} s, plain {out['plain_path_s']} s; same basin "
+            f"{out['frac_same_basin_converged']:.4f} (the JAX record 0.991); ok {out['ok']}; launches K1 {n['K1']} "
+            f"K2 {n['K2']} [{self.smi}]")
+        self.check(min(n["K1"], n["K2"]) > 0, f"phase 5 kernel launches {n}")
+        self.check(out["ok"], "phase 5 kernel path disagrees with the plain path")
 
     # -------------------------------------------------------------- 6 tick
     def _replay(self, dtype, cfg, accel, tol):
@@ -1806,83 +1763,52 @@ class Smoke:
 
     # ---------------------------------------------------------- 15 oracle
     def accuracy(self):
-        """(a) The card's f64 solve on K1 and K2 against the port's lifted-NLP
-        oracle (host processes started in phase 9, or here in a partial
-        run), under bench_accuracy.py's ok rule and the tighter same-basin
-        gate SAME_BASIN_MAE_F64."""
-        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        """(a) The accuracy bench's functions (benchmarks/accuracy.py) on the
+        first problem of each cell: the card's f64 solve on K1 and K2 against
+        the port's lifted-NLP oracle (host processes started in phase 9, or
+        here in a partial run), under bench_accuracy.py's ok rule
+        (accuracy.summarize) and the tighter same-basin gate
+        SAME_BASIN_MAE_F64."""
+        from learningagileflight_se3_torch.benchmarks import accuracy
 
-        f64 = dict(dtype=torch.float64, device="cuda")
-        groups = {}  # the thrust bound (a kernel constant) -> rows
-        for row in ACCURACY_ROWS:
-            groups.setdefault(accuracy_problem(row)[2].u_ub, []).append(row)
-        ddp = {}
         plain0 = read_plain_calls()
         reset_launches()
         t0 = time.perf_counter()
-        for rows in groups.values():
-            params, weights, cfg, _, _ = accuracy_problem(rows[0])
-            # each scenario twice: cold from the midpoint (U_init = the
-            # midpoint init itself) and from the hover start
-            args = [np.stack([accuracy_problem(r)[4][j] for r in rows * 2]) for j in range(6)]
-            H, n = cfg.horizon, len(rows)
-            U0 = np.concatenate([np.full((n, H, 4), 0.5 * (cfg.u_lb + cfg.u_ub)),
-                                 np.full((n, H, 4), params.mass * params.g / 4)])
-            sol = make_batched_mpc_solver(params, weights, cfg)(
-                *[torch.as_tensor(a, **f64) for a in args], U_init=torch.as_tensor(U0, **f64))
-            cost = sol.cost.cpu().numpy()
-            for j, row in enumerate(rows):
-                k = j if cost[j] <= cost[j + n] else j + n
-                ddp[row] = dict(U=sol.control_traj[k].cpu().numpy(), cost=float(cost[k]),
-                                status=int(sol.status[k]), iters=int(sol.iterations[k]),
-                                converged=bool(sol.converged[k]), start="midpoint" if k < n else "hover",
-                                iters_both=(int(sol.iterations[j]), int(sol.iterations[j + n])))
+        ddp = accuracy.card_solves(ACCURACY_ROWS, "cuda")
         wall = time.perf_counter() - t0
         self.path_launches["oracle"] = n_l = read_launches()
-        log(f"oracle phase, card: {len(groups)} f64 solves of {2 * len(ACCURACY_ROWS) // len(groups)} lanes "
-            f"(H=50, max_iters=2000) in {wall:.2f} s, launches K1 {n_l['K1']} K2 {n_l['K2']} [{self.smi}]")
+        log(f"oracle phase, card: {len(ACCURACY_ROWS)} problems x 2 starts (H=50, max_iters=2000, f64) in "
+            f"{wall:.2f} s, launches K1 {n_l['K1']} K2 {n_l['K2']} [{self.smi}]")
         self.check(n_l["K1"] > 0 and n_l["K2"] > 0, f"phase 15 kernel launches {n_l}")
         self.check(read_plain_calls() == plain0, "phase 15 moved a plain-version counter")
 
         rows = []
         for row in ACCURACY_ROWS:
             ora, waited = self.plain_side(f"oracle_{row}")
-            _, _, cfg, name, _ = accuracy_problem(row)
-            d, U_star = ddp[row], ora["U"].numpy()
-            n_active = int(np.sum((np.abs(U_star - cfg.u_lb) < 1e-7) | (np.abs(U_star - cfg.u_ub) < 1e-7)))
-            mae = float(np.mean(np.abs(d["U"] - U_star)))
-            gap = (d["cost"] - ora["cost"]) / abs(ora["cost"])
-            rows.append(dict(mae=mae, gap=gap, kkt=ora["kkt"], n_active=n_active))
-            log(f"oracle {name} (row {row}): control MAE {mae:.3e}, rel cost gap {gap:+.3e}, oracle KKT "
-                f"{ora['kkt']:.1e} defect {ora['viol']:.1e} ({ora['method']}, {ora['seconds']:.1f} s on one host "
-                f"core, waited {waited:.1f} s), active bounds {n_active}/200; DDP status {d['status']} after "
-                f"{d['iters']} iterations from the {d['start']} start (midpoint {d['iters_both'][0]}, hover "
-                f"{d['iters_both'][1]}), converged {d['converged']}, cost {d['cost']:.10f} oracle "
-                f"{ora['cost']:.10f} [{self.smi}]")
-            self.check(np.isfinite(d["cost"]) and np.isfinite(d["U"]).all(), f"phase 15 {name}: DDP not finite")
-        # bench_accuracy.py's ok rule: an unconverged oracle proves nothing
-        # tight, so DDP need only be within 0.1% of its best iterate; on the
-        # rest, a control MAE of 1e-4 or more is another basin, where DDP
-        # must not lose to the oracle by more than 1e-9
-        unconv_ok = all(r["gap"] <= 1e-3 for r in rows if r["kkt"] > 1e-6)
-        conv = [r for r in rows if r["kkt"] <= 1e-6]
-        maes = np.array([r["mae"] for r in conv if r["mae"] < 1e-4])
-        mism_ok = all(r["gap"] <= 1e-9 for r in conv if r["mae"] >= 1e-4)
-        n_active = sum(r["n_active"] > 0 for r in rows)
-        ok = maes.size > 0 and float(maes.max()) < 1e-3 and mism_ok and n_active >= 1 and unconv_ok
-        log(f"oracle, bench_accuracy.py's rule: {maes.size} same-basin scenarios, mean MAE "
-            f"{float(maes.mean()) if maes.size else float('nan'):.3e}, {len(conv) - maes.size} basin mismatches "
-            f"(DDP never worse: {mism_ok}), {len(rows) - len(conv)} oracle unconverged (DDP within 0.1%: "
-            f"{unconv_ok}), {n_active} with active bounds: ok {ok}; same-basin MAE at most "
-            f"{float(maes.max()) if maes.size else float('nan'):.3e} (gate {SAME_BASIN_MAE_F64:.0e})")
+            d, r = ddp[row], accuracy.row_record(row, ddp[row], ora)
+            rows.append(r)
+            log(f"oracle {r['variant']}/{r['regime']} (row {row}): control MAE {r['mae']:.3e}, rel cost gap "
+                f"{r['rel_cost_gap']:+.3e}, oracle KKT {r['kkt']:.1e} defect {r['oracle_defect']:.1e} "
+                f"({r['oracle_method']}, {r['oracle_s']:.1f} s on one host core, waited {waited:.1f} s), active "
+                f"bounds {r['n_active_bounds']}/200; DDP status {d['status']} after {d['iters']} iterations from the "
+                f"{d['start']} start (midpoint {d['iters_both'][0]}, hover {d['iters_both'][1]}), converged "
+                f"{d['converged']}, cost {d['cost']:.10f} oracle {ora['cost']:.10f} [{self.smi}]")
+            self.check(np.isfinite(d["cost"]) and np.isfinite(d["U"]).all(), f"phase 15 row {row}: DDP not finite")
+        out = accuracy.summarize(rows)
+        max_mae = out["max_mae"] if out["max_mae"] is not None else float("nan")
+        log(f"oracle, bench_accuracy.py's rule: {out['n_same_basin']} same-basin problems, mean MAE "
+            f"{out['value']:.3e}, {out['n_basin_mismatch']} basin mismatches (DDP never worse: "
+            f"{out['basin_mismatch_ddp_never_worse']}), {out['n_oracle_unconverged']} oracle unconverged (DDP within "
+            f"0.1%: {out['oracle_unconverged_ddp_within_1e3']}), {out['n_scenarios_with_active_bounds']} with "
+            f"active bounds: ok {out['ok']}; same-basin MAE at most {max_mae:.3e} (gate {SAME_BASIN_MAE_F64:.0e})")
         with open(os.path.join(REPO, "artifacts", "bench_accuracy.json")) as f:
             rec = json.load(f)
         log("oracle, the JAX package's record (artifacts/bench_accuracy.json: its single-problem solver "
-            "against its CPU f64 oracle on all 32 scenarios; not gated): " + json.dumps(
+            "against its CPU f64 oracle on all 32 problems; not gated): " + json.dumps(
                 {k: rec[k] for k in ("value", "mae_median", "max_mae", "n_same_basin", "n_basin_mismatch",
                                      "n_oracle_unconverged", "max_oracle_kkt")}))
-        self.check(ok, "phase 15: the card's f64 solve fails bench_accuracy.py's rule against the oracle")
-        self.check(maes.size > 0 and float(maes.max()) < SAME_BASIN_MAE_F64,
+        self.check(out["ok"], "phase 15: the card's f64 solve fails bench_accuracy.py's rule against the oracle")
+        self.check(max_mae < SAME_BASIN_MAE_F64,
                    f"phase 15: a same-basin control MAE is not under {SAME_BASIN_MAE_F64:.0e}")
 
     def native_plant(self):
@@ -1923,6 +1849,50 @@ class Smoke:
             f"{reward_native.min():.3f} to {reward_native.max():.3f}): max abs {err_r:.3e} (gate 1e-9) [{self.smi}]")
         self.check(np.isfinite(X_host).all() and err_X <= 1e-10, f"phase 15 native plant differs by {err_X:.3e}")
         self.check(np.isfinite(reward).all() and err_r <= 1e-9, f"phase 15 native reward differs by {err_r:.3e}")
+
+
+    # ------------------------------------------------------- 16 benchmarks
+    def benchmarks(self):
+        """The latency and realtime benches in full and the scaling bench's
+        silicon row and solve-mode rows on the card (benchmarks/latency.py,
+        realtime.py, scaling.py), each with its JSON line; K1 and K2 launched
+        on every path, no plain-version call."""
+        from learningagileflight_se3_torch.benchmarks import latency, realtime, scaling
+
+        for name, run in (("bench_latency", lambda: latency.run("cuda")),
+                          ("bench_realtime", lambda: realtime.run("cuda"))):
+            plain0 = read_plain_calls()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run()
+            self.path_launches[name] = n = read_launches()
+            print(json.dumps(out), flush=True)
+            log(f"{name}: value {out['value']} s in {time.perf_counter() - t0:.1f} s, launches K1 {n['K1']} K2 "
+                f"{n['K2']} [{self.smi}]")
+            self.check(min(n["K1"], n["K2"]) > 0, f"phase 16 {name} kernel launches {n}")
+            self.check(read_plain_calls() == plain0, f"phase 16 {name} moved a plain-version counter")
+            self.check(np.isfinite(out["value"]), f"phase 16 {name} value {out['value']}")
+        sr, parts = out["success_rate"], out["launches"]
+        log(f"bench_realtime: tick p50 {out['tick_p50_s']} p90 {out['tick_p90_s']} s, success {sr} (gates >= 0.90 "
+            f"and within 0.05 of the JAX record {REALTIME_JAX_SUCCESS}), diverged {out['n_diverged']} (gate 2), "
+            f"ok {out['ok']} (printed, not gated); tick solve exits {out['tick_solve_status_histogram']}")
+        self.check(sr >= 0.90 and abs(sr - REALTIME_JAX_SUCCESS) <= 0.05, f"phase 16 realtime success {sr}")
+        self.check(out["n_diverged"] <= 2, f"phase 16 realtime diverged {out['n_diverged']}")
+        self.check(all(min(p["K1"], p["K2"]) > 0 for p in parts.values()), f"phase 16 realtime part launches {parts}")
+
+        t0 = time.perf_counter()
+        out = scaling.run("cuda", cpu_rows=False, modes=("solve",), log_dir=os.path.join(REPO, "build", "smoke"))
+        print(json.dumps(out), flush=True)
+        ranks = [r for run in out["launches"].values() for r in run]
+        self.path_launches["bench_scaling"] = dict(K1=sum(r["K1"] for r in ranks), K2=sum(r["K2"] for r in ranks),
+                                                   K3=0)
+        log(f"bench_scaling: {out['solves_per_sec']} solves/s by card count, one process against two gloo ranks "
+            f"on the card {out['multiprocess_card']}, in {time.perf_counter() - t0:.1f} s; the ranks' launches "
+            f"{self.path_launches['bench_scaling']} [{self.smi}]")
+        self.check(all(min(r["K1"], r["K2"]) > 0 and r["K1_plain"] == r["K2_plain"] == 0 for r in ranks),
+                   f"phase 16 scaling rank launches {ranks}")
+        self.check(out["solves_per_sec"].get("1", 0) > 0 and out["multiprocess_card"] is not None,
+                   "phase 16 scaling rows missing")
 
 
 def main():
@@ -1967,7 +1937,8 @@ def drive(s, only):
               # after phases 10 to 14, so that its CPU side has had the time it needs
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths),
               ("15 oracle, the card's f64 solve against the lifted oracle", s.accuracy),
-              ("15 oracle, the native plant against the card's", s.native_plant)]
+              ("15 oracle, the native plant against the card's", s.native_plant),
+              ("16 benchmarks", s.benchmarks)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)
@@ -1977,8 +1948,8 @@ def drive(s, only):
     if only is not None:
         log(f"partial run (phases {sorted(only | {1, 2})}) passed; no result lines")
         return 0
-    # `launches` is the main path's count (phase 4's solve), K3's is phase
-    # 7's (it is on no path); `launches_by_path` has each path's own count,
+    # `launches` is the main path's count (one synced solve of phase 4's
+    # bench), K3's is phase 7's (it is on no path); `launches_by_path` has each path's own count,
     # the counters set to 0 just before that path and read just after
     by_path = lambda k: {path: n[k] for path, n in s.path_launches.items()}
     src = "learningagileflight_se3_torch/csrc/"

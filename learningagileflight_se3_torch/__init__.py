@@ -28,6 +28,10 @@ Layering (bottom -> top):
   oracle/    the independent yardsticks, on the host in float64: the numpy
              plant and cost, the shooting and lifted-NLP oracles
   native.py  bindings of the C++ plant, sampler and reward (native/fastquad.cpp)
+  benchmarks/  the counterparts of bench.py and benchmarks/*.py: the batched
+             solve's throughput and quality, the kernel path against the
+             plain path, the query latency, the real-time tick with its
+             success rate, the accuracy against the oracle, the scaling rows
   utils/     flax -> torch weight conversion, training-state checkpoints,
              the URDF / OBJ asset generators
 

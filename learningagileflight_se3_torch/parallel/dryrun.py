@@ -68,14 +68,14 @@ def _rank_main(fn, rank, n, store, device, backend, args, out):
 
 
 def run_ranks(fn, n: int, device="cuda", backend: Optional[str] = None, args: Sequence = (),
-              scratch_dir: Optional[str] = None) -> list:
+              scratch_dir: Optional[str] = None, timeout_s: float = JOIN_TIMEOUT_S) -> list:
     """fn(mesh, *args) in each of n new processes, ranks 0..n-1 of one group
     on `device` (the card by default: rank r on card r mod the card count;
     `backend` as initialize_distributed picks it unless given).  `fn` must
     be importable by module path, and its result picklable.  Returns the
     ranks' results in rank order.  Raises if a rank exits non-zero, or if
-    the ranks are not all done within JOIN_TIMEOUT_S (every process is
-    killed first)."""
+    the ranks are not all done within `timeout_s` (every process is killed
+    first)."""
     device = str(resolve_device(device))
     work = tempfile.mkdtemp(prefix="laf_ranks_", dir=scratch_dir)
     ctx = mp.get_context("spawn")
@@ -86,11 +86,11 @@ def run_ranks(fn, n: int, device="cuda", backend: Optional[str] = None, args: Se
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         if any(p.is_alive() for p in procs):
-            raise TimeoutError(f"run_ranks: {n} ranks not done within {JOIN_TIMEOUT_S} s")
+            raise TimeoutError(f"run_ranks: {n} ranks not done within {timeout_s} s")
         codes = [p.exitcode for p in procs]
         if any(c != 0 for c in codes):
             raise RuntimeError(f"run_ranks: rank exit codes {codes}")

@@ -44,18 +44,22 @@ def solver_config(device: torch.device, horizon: int = 50, max_iters: int = 45) 
 
 
 def fly(model2, scen, gate_noise=None, *, steps=500, static_gate=False, estimate_gate_motion=False,
-        gate_obs_noise=0.0, seed=0, device="cuda", solver_cfg=None, dtype=torch.float32, obs_noise=None):
+        gate_obs_noise=0.0, seed=0, device="cuda", solver_cfg=None, dtype=torch.float32, obs_noise=None,
+        fixed_point_accel="reference"):
     """Fly `scen` (n, 9) through the closed loop in `dtype` (float32, as the
     benchmark flies).  Returns (log, metrics, synced wall seconds).  The gate
     noise is `gate_noise`, or drawn from a generator seeded by `seed`; so is
-    the observation noise, unless `obs_noise` is given."""
+    the observation noise, unless `obs_noise` is given.  `fixed_point_accel`
+    is the traversal-time fixed point's update (bench_realtime.py flies
+    "secant")."""
     device = resolve_device(device)
     motion = GateMotionConfig()
     if static_gate:
         motion, gate_noise = GateMotionConfig(velocity=(0.0, 0.0, 0.0), omega_y=0.0, noise_std=0.0), None
     sim = make_closed_loop_sim(model2, QuadParams(), CostWeights(), solver_cfg or solver_config(device),
                                motion_cfg=motion, steps=steps, estimate_gate_motion=estimate_gate_motion,
-                               gate_obs_noise=gate_obs_noise, device=device, dtype=dtype)
+                               gate_obs_noise=gate_obs_noise, fixed_point_accel=fixed_point_accel,
+                               device=device, dtype=dtype)
     scen = torch.as_tensor(scen, dtype=dtype, device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)

@@ -126,6 +126,7 @@ class ExternalSimController:
         self._u_dev = torch.zeros(4, **kw)
         self._hover_U = torch.full((H, 4), 0.5 * (self.solver_cfg.u_lb + self.solver_cfg.u_ub), **kw)
         self._U_dev = None
+        self.solution = None  # the last tick's MPC solution, on the device
 
     @torch.no_grad()
     def _device_step(self, obs, u_prev, U_warm):
@@ -140,6 +141,7 @@ class ExternalSimController:
             inp[None, 0:13], u_prev[None], inp[None, 13:16],
             out[None, 0:3], out[None, 3:6], out[None, 6], U_init=U_warm[None],
         )
+        self.solution = sol
         u = sol.control_traj[0, 0]
         packed = torch.cat([self._mix @ u, u, t.reshape(1).to(u.dtype)])
         return packed, u, sol.control_traj[0]

@@ -521,3 +521,83 @@ def test_nccl_world_size_one_step_equals_unsharded(cuda):
     for mode, r in report.items():
         assert r["reward_rel"] == 0.0 and r["param_abs"] <= 1.5e-4, (mode, r)
         assert r["launches"][0][0] > 0 and r["launches"][0][1] > 0, (mode, r)
+
+
+def _counts():
+    return (rollout.launches, riccati_fused.launches, rollout.plain_calls, riccati_fused.plain_calls)
+
+
+def _assert_kernels_only(before, what):
+    """K1 and K2 launched since `before`, and no plain-version call."""
+    k1, k2, p1, p2 = (a - b for a, b in zip(_counts(), before))
+    assert k1 > 0 and k2 > 0 and p1 == 0 and p2 == 0, (what, k1, k2, p1, p2)
+
+
+def test_solve_bench_runs_on_the_kernels(cuda):
+    """benchmarks/solve.py at a small size on the card: every tier solves on
+    K1 and K2 with no plain-version call, finite costs, the JSON fields, and
+    each part's counts (one synced solve, the whole run) launched both."""
+    from learningagileflight_se3_torch.benchmarks import solve
+
+    n = _counts()
+    out = solve.run(batch=64, horizon=10, reps=1, pipeline_depth=2, pipeline_rounds=1, tile=16)
+    _assert_kernels_only(n, "solve")
+    assert out["n_nonfinite_costs"] == 0 and out["platform"] != "cpu" and out["certified_tier"] is not None
+    for part, c in out["launches"].items():
+        assert min(c["K1"], c["K2"]) > 0 and c["K1_plain"] == c["K2_plain"] == 0, (part, c)
+
+
+def test_kernel_check_bench_runs_on_the_kernels(cuda):
+    """benchmarks/kernel_check.py at a small size: the kernel path launches
+    K1 and K2 (the plain path is the CPU's, by design)."""
+    from learningagileflight_se3_torch.benchmarks import kernel_check
+
+    n = _counts()
+    out = kernel_check.run(batch=32, horizon=10, max_iters=10)
+    assert rollout.launches > n[0] and riccati_fused.launches > n[1]
+    assert out["compiled"] and np.isfinite(out["max_cost_rel_diff"])
+
+
+def test_latency_bench_runs_on_the_kernels(cuda):
+    """benchmarks/latency.py at a small size on the card."""
+    from learningagileflight_se3_torch.benchmarks import latency
+
+    n = _counts()
+    out = latency.run(horizon=10, queries=7, tile=8, tile_queries=4)
+    _assert_kernels_only(n, "latency")
+    assert out["value"] > 0 and out["tile_batch"] == 8
+
+
+def test_realtime_bench_runs_on_the_kernels(cuda):
+    """benchmarks/realtime.py at a small size on the card: the ticks and the
+    success flight each launch K1 and K2, no plain-version call."""
+    from learningagileflight_se3_torch.benchmarks import realtime
+
+    n = _counts()
+    out = realtime.run(n=4, steps=30, latency_trajectories=1, max_iters=5, horizon=10)
+    _assert_kernels_only(n, "realtime")
+    for part, c in out["launches"].items():
+        assert min(c["K1"], c["K2"]) > 0 and c["K1_plain"] == c["K2_plain"] == 0, (part, c)
+
+
+def test_accuracy_bench_solves_on_the_kernels(cuda):
+    """benchmarks/accuracy.py's card solve (f64, both starts) on one problem
+    of each thrust bound: K1 and K2, no plain-version call (the oracle is
+    the host's and is not run here)."""
+    from learningagileflight_se3_torch.benchmarks import accuracy
+
+    n = _counts()
+    out = accuracy.card_solves([0, 16])
+    _assert_kernels_only(n, "accuracy")
+    assert all(d["converged"] and np.isfinite(d["cost"]) for d in out.values()), out
+
+
+def test_scaling_bench_silicon_row_runs_on_the_kernels(cuda, tmp_path):
+    """benchmarks/scaling.py's silicon row on one NCCL rank at a small size:
+    the rank launches K1 and K2 and calls no plain version."""
+    from learningagileflight_se3_torch.benchmarks import scaling
+
+    row = scaling.silicon_row(1, horizon=10, iters=5, reps=1, log_dir=str(tmp_path))
+    assert row["solves_per_sec"] > 0
+    for c in row["launches"]:
+        assert min(c["K1"], c["K2"]) > 0 and c["K1_plain"] == c["K2_plain"] == 0, c

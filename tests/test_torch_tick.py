@@ -198,10 +198,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """ExternalSimController, run_rl_training, run_pretraining,
     run_imitation_training, make_closed_loop_sim, run_validation_sim,
     make_mesh, initialize_distributed (given the LAF_* variables), the
-    single-problem solver make_mpc_solver (whatever its inputs) and the
-    two ablation scripts' mains run on the card unless given device="cpu":
-    without a card their default raises before any work, and nothing runs
-    on the CPU in its place."""
+    single-problem solver make_mpc_solver (whatever its inputs), the two
+    ablation scripts' mains and the benchmarks' runs (solve, kernel_check,
+    latency, realtime, accuracy, scaling) run on the card unless given
+    device="cpu": without a card their default raises before any work (no
+    oracle process, no rank started), and nothing runs on the CPU in its
+    place."""
     import importlib.util
     import os
 
@@ -247,6 +249,14 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main(["--out", str(tmp_path / name)])
         assert not os.path.exists(tmp_path / name)
+    from learningagileflight_se3_torch.benchmarks import accuracy, kernel_check, latency, realtime, scaling, solve
+
+    for bench in (solve, kernel_check, latency, realtime, accuracy):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scaling.run(log_dir=str(tmp_path / "ranks"))
+    assert not (tmp_path / "ranks").exists()
     assert not (tmp_path / "store").exists()
     assert (rollout.plain_calls, riccati_fused.plain_calls) == plain
     ctrl = ExternalSimController(load_dnn2(), final_point=np.zeros(3),
