@@ -172,12 +172,28 @@ Phases, each printing its numbers on lines of its own:
              NCCL rank, 2048 lanes, H=50, 30 iterations) and its solve rows
              on the card (one gloo rank against two sharing the card, 64
              lanes, H=20), the ranks' launches counted
+  17 entry   the flagship forward step (learningagileflight_se3_torch/entry.py,
+             the counterpart of __graft_entry__.py entry(): DNN1, then one
+             batched MPC solve, H=50, 30 iterations): (a) entry() on the card
+             with its example arguments (the JAX entry()'s DNN1 and 8
+             scenarios, weights/entry_args.npz), f32: first controls (8, 4),
+             finite, within [u_lb, u_ub], K1 and K2 launched, no plain-version
+             call; (b) the same arguments in f64 on the card against the CPU
+             plain path, first controls lane by lane within 1e-8 (where a lane
+             parts it is printed with the first tie on the CPU path,
+             solver/watch.py first_tie, and phase 9's gate holds: median
+             within 1e-8 and 6 of 8 lanes); (c) K1 and K2 against their plain
+             versions on the entry solve's inputs (phase 3's gates, timed);
+             (d) the forward step's time (host clock, synced, best of 3, not
+             gated) at B=8 and at B=2048 (the shipped nn_deep on seeded
+             scenarios) with the status histogram and launches
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of one synced solve of phase 4's solve bench at bench.py's config,
 the main path; `launches_by_path` each path's own, "solve_bench" the whole
-solve bench's; `bound_ms` the least time the card could take at B=2048, `library_ms`
-null: no single PyTorch call computes these functions), the nvidia-smi line
+solve bench's, "entry" one call of the flagship forward step; `bound_ms`
+the least time the card could take at B=2048, `library_ms` null: no
+single PyTorch call computes these functions), the nvidia-smi line
 and {"ok": true, "device": {...}}.  Every time is printed with the card's
 nvidia-smi name and power limit.
 
@@ -1894,6 +1910,93 @@ class Smoke:
         self.check(out["solves_per_sec"].get("1", 0) > 0 and out["multiprocess_card"] is not None,
                    "phase 16 scaling rows missing")
 
+    # ------------------------------------------------------------ 17 entry
+    def entry(self):
+        """The flagship forward step (learningagileflight_se3_torch/entry.py):
+        entry() on the card with its example arguments (f32), the same
+        arguments in f64 on the card against the CPU plain path, K1 and K2
+        against their plain versions on the entry solve's inputs, and the
+        forward step's time at B=8 and B=2048."""
+        from learningagileflight_se3_torch.config import SolverConfig
+        from learningagileflight_se3_torch.entry import entry, make_forward_step
+        from learningagileflight_se3_torch.models.sampler import sample_scenarios
+        from learningagileflight_se3_torch.solver.watch import (
+            capture_inputs, decision_record, first_tie, kept_solutions,
+        )
+        from learningagileflight_se3_torch.utils.weights import NN_DEEP_DNN1, load_dnn1
+
+        # (a) entry() as a user calls it: f32 on the card, K1 and K2 only
+        fn, (dnn1, scen) = entry()
+        plain0 = read_plain_calls()
+        reset_launches()
+        u = fn(dnn1, scen)
+        torch.cuda.synchronize()
+        self.path_launches["entry"] = n = read_launches()
+        cfg = SolverConfig()
+        # the bounds in u's dtype, as the solver clips
+        ok = (u.shape == (8, 4) and u.dtype == torch.float32 and bool(torch.isfinite(u).all())
+              and bool((u >= cfg.u_lb).all() and (u <= cfg.u_ub).all()))
+        log(f"entry: forward_step(dnn1, scenarios (8, 9)) -> {tuple(u.shape)} {u.dtype}, first controls in "
+            f"[{float(u.min()):.4f}, {float(u.max()):.4f}] (bounds [{cfg.u_lb}, {cfg.u_ub}]); launches K1 {n['K1']} "
+            f"K2 {n['K2']}")
+        self.check(ok, "phase 17 first controls not (8, 4) f32, finite and within the thrust bounds")
+        self.check(min(n["K1"], n["K2"]) > 0, f"phase 17 kernel launches {n}")
+        self.check(read_plain_calls() == plain0, "phase 17 moved a plain-version counter")
+
+        # (b) f64: the card's kernel path against the CPU plain path, lane by lane
+        t0 = time.perf_counter()
+        with kept_solutions() as sols:
+            u_card = make_forward_step(device="cuda", dtype=torch.float64)(dnn1, scen).cpu()
+            with decision_record() as rec:
+                u_cpu = make_forward_step(device="cpu", dtype=torch.float64)(dnn1, scen.cpu())
+        card, cpu = sols
+        diff = (u_card - u_cpu).abs().amax(dim=1)
+        within = int((diff <= 1e-8).sum())
+        log(f"entry f64: first controls card against CPU per lane {[f'{d:.2e}' for d in diff.tolist()]} "
+            f"({time.perf_counter() - t0:.1f} s); exits card {card.status.tolist()} CPU {cpu.status.tolist()}, "
+            f"iterations card {card.iterations.tolist()} CPU {cpu.iterations.tolist()}")
+        parted = [i for i in range(8) if diff[i] > 1e-8]
+        for i in parted:
+            tie = first_tie(rec, i, int(cpu.iterations[i]))
+            log(f"entry f64: lane {i} parts ({float(diff[i]):.3e}); "
+                + (f"the CPU path meets a tie at {tie[1]}" if tie else "no tie on the CPU path"))
+        med = float(diff.median())
+        if parted:  # phase 9's gate: the median, and a count of agreeing lanes
+            self.check(med <= 1e-8 and within >= 6, f"phase 17 f64 card against CPU: median {med:.3e} "
+                       f"(gate 1e-8), {within} of 8 lanes within 1e-8 (gate 6)")
+        log(f"entry f64: {within} of 8 lanes within 1e-8 (gate: all, or where a lane parts at a tie the "
+            f"median within 1e-8 and 6 of 8), median {med:.3e}")
+
+        # (c) K1 and K2 against their plain versions on the entry solve's inputs
+        with torch.no_grad():
+            _, got = capture_inputs(lambda: fn(dnn1, scen), k2_call=INPUT_ITERS)
+        self._kernels_at_path_shapes("phase 17", "entry solve", got)
+
+        # (d) the forward step's time, synced, best of 3: the example, and
+        # the shipped nn_deep on 2048 seeded scenarios
+        nn_deep = load_dnn1(NN_DEEP_DNN1).to("cuda")
+        big = sample_scenarios(torch.Generator(device="cuda").manual_seed(17), 2048)
+        for what, model, x in (("B=8, the example", dnn1, scen), ("B=2048, nn_deep", nn_deep, big)):
+            with kept_solutions() as sols:
+                step = make_forward_step()
+                step(model, x)  # warm-up
+                times = []
+                for _ in range(3):
+                    reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(model, x)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    launches = read_launches()
+            hist = torch.bincount(sols[-1].status.long(), minlength=5).tolist()
+            log(f"entry time ({what}, H=50, 30 iterations, f32): best of 3 {min(times) * 1e3:.2f} ms "
+                f"(all {[round(t * 1e3, 2) for t in times]} ms, host clock, synced); exits {hist} (cap, "
+                f"stationary, stalled, floor, blowout); iterations max {int(sols[-1].iterations.max())}; "
+                f"launches K1 {launches['K1']} K2 {launches['K2']}; finite {bool(torch.isfinite(out).all())} "
+                f"[{self.smi}]")
+            self.check(bool(torch.isfinite(out).all()), f"phase 17 {what}: first controls not finite")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1938,7 +2041,7 @@ def drive(s, only):
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths),
               ("15 oracle, the card's f64 solve against the lifted oracle", s.accuracy),
               ("15 oracle, the native plant against the card's", s.native_plant),
-              ("16 benchmarks", s.benchmarks)]
+              ("16 benchmarks", s.benchmarks), ("17 entry", s.entry)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)

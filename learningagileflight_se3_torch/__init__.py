@@ -28,6 +28,8 @@ Layering (bottom -> top):
   oracle/    the independent yardsticks, on the host in float64: the numpy
              plant and cost, the shooting and lifted-NLP oracles
   native.py  bindings of the C++ plant, sampler and reward (native/fastquad.cpp)
+  entry.py   the flagship forward step (DNN1, then one batched solve), the
+             counterpart of __graft_entry__.py
   benchmarks/  the counterparts of bench.py and benchmarks/*.py: the batched
              solve's throughput and quality, the kernel path against the
              plain path, the query latency, the real-time tick with its

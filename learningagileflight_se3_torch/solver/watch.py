@@ -6,13 +6,16 @@ the batched solver (solver/ilqr_batched.py) makes to its K1 (rollout) and K2
 K2, is reported with its place in the solve, its arguments and its
 outputs.  chip_smoke.py and the card tests use it to hold
 the kernels against their plain versions on the inputs a path really gives
-them, and to see where two paths part.  The watcher launches nothing of its
-own and changes no value.
+them, and to see where two paths part (`decision_record`, `first_tie`);
+`kept_solutions` keeps the whole solution of an entry point's solve.  The
+watchers launch nothing of their own and change no value.
 """
 
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 from learningagileflight_se3_torch.solver import ilqr_batched
 
@@ -84,3 +87,67 @@ def capture_inputs(run, solve=0, k2_call=10):
     with watched_kernels(on_call):
         out = run()
     return out, got
+
+
+@contextlib.contextmanager
+def kept_solutions():
+    """Inside the block, each batched solver made through solver/ilqr.py's
+    `make_batched_mpc_solver` (so the solvers of the entry points made in
+    the block) appends every MPCSolution it returns to the yielded list: a
+    reference, no device work."""
+    from learningagileflight_se3_torch.solver import ilqr
+
+    real, sols = ilqr.make_batched_mpc_solver, []
+
+    def make(*a, **kw):
+        solve = real(*a, **kw)
+
+        def kept(*args, **k):
+            sols.append(solve(*args, **k))
+            return sols[-1]
+        return kept
+
+    ilqr.make_batched_mpc_solver = make
+    try:
+        yield sols
+    finally:
+        ilqr.make_batched_mpc_solver = real
+
+
+@contextlib.contextmanager
+def decision_record():
+    """Inside the block, the yielded dict gets, for each DDP iteration (from
+    0) of the block's last solve, the model's predicted decrease
+    -(dV1 + dV2) and the costs of its line-search trials, per lane:
+    {iteration: {"decrement": (B,), "trials": [(B,), ...]}}."""
+    rec = {}
+
+    def on_call(kind, solve, iteration, trip, a, kw, out):
+        if kind == "K2":
+            if iteration == 0:  # a new solve
+                rec.clear()
+            rec[iteration] = dict(decrement=-(out[2] + out[3]), trials=[])
+        elif kind == "K1":
+            rec[iteration]["trials"].append(out[2].detach().clone())
+
+    with watched_kernels(on_call):
+        yield rec
+
+
+def first_tie(rec, lane: int, iterations: int):
+    """The first DDP iteration (from 0) of a lane's solve, within its first
+    `iterations`, at which the model's predicted decrease is below one ulp
+    of the cost and the line search's trial costs equal one another to 8
+    ulps: the accept test `Jn < J` is then decided by rounding, and two
+    paths that differ by rounding alone may take different steps there.
+    (iteration, text) from a `decision_record`, or None."""
+    for k in range(iterations):
+        trials = torch.stack(rec[k]["trials"])[:, lane].double().cpu()
+        eps = torch.finfo(rec[k]["trials"][0].dtype).eps
+        J, dec = float(trials.abs().max()), float(rec[k]["decrement"][lane])
+        spread = float(trials.max() - trials.min())
+        if dec <= eps * J and spread <= 8 * eps * J:
+            return k, (f"DDP iteration {k + 1}: predicted decrease {dec:.3e} <= one ulp of the cost "
+                       f"{eps * J:.3e}; the {len(trials)} trial costs {trials.min().item()!r} .. "
+                       f"{trials.max().item()!r} differ by {spread:.3e}")
+    return None

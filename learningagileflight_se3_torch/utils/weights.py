@@ -5,9 +5,10 @@ JAX package's `scripts/export_torch_weights.py` writes their raw arrays to
 an npz under `weights/` (keys like "params/Dense_0/kernel"), which this
 module reads without JAX.  The same script writes the scenarios and the gate
 noise that the JAX package's closed-loop benchmark draws for its two
-recorded seeds (`bench_scenarios`), and `scripts/export_accuracy_scenarios.py`
+recorded seeds (`bench_scenarios`), `scripts/export_accuracy_scenarios.py`
 the 32 problems of the JAX package's accuracy benchmark
-(`accuracy_scenarios`).
+(`accuracy_scenarios`), and `scripts/export_entry_args.py` the example
+arguments of the JAX package's flagship forward step (`entry_args`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ NN_DEEP_DNN1 = os.path.join(WEIGHTS_DIR, "nn_deep_dnn1.npz")  # after RL
 
 BENCH_SEEDS = (2024, 4096)
 ACCURACY_SCENARIOS = os.path.join(WEIGHTS_DIR, "accuracy_scenarios.npz")
+ENTRY_ARGS = os.path.join(WEIGHTS_DIR, "entry_args.npz")
 
 
 def bench_scenarios_path(seed: int) -> str:
@@ -95,3 +97,15 @@ def load_dnn2(path: str = NN3_1_DNN2) -> MLP:
 def load_dnn1(path: str = NN_PRE_DNN1) -> MLP:
     """DNN1 with the exported flax weights (float32, on the CPU)."""
     return _load(make_dnn1(), path)
+
+
+def entry_args(path: str = ENTRY_ARGS):
+    """(DNN1, scenarios (8, 9) float32 numpy): the example arguments of the
+    JAX package's flagship forward step, which
+    scripts/export_entry_args.py exports (the DNN1 float32, on the CPU)."""
+    with np.load(path) as z:
+        params = {k: z[k] for k in z.files if k.startswith("params/")}
+        scenarios = z["scenarios"]
+    model = make_dnn1()
+    model.load_state_dict(jax_params_to_torch(params))
+    return model, scenarios

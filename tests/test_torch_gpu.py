@@ -2,7 +2,8 @@
 PyTorch version on the card (also on the omega-box continuation's inputs),
 K3 against K2, the kernel-backed solver against the plain solver, the RL
 learning signals, the closed loop and the imitation
-collect on the card against the CPU, and the entry points' default device.
+collect on the card against the CPU, the entry points' default device, and
+the flagship forward step on the kernels.
 Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
@@ -601,3 +602,21 @@ def test_scaling_bench_silicon_row_runs_on_the_kernels(cuda, tmp_path):
     assert row["solves_per_sec"] > 0
     for c in row["launches"]:
         assert min(c["K1"], c["K2"]) > 0 and c["K1_plain"] == c["K2_plain"] == 0, c
+
+
+def test_entry_runs_on_the_kernels(cuda):
+    """The flagship forward step (entry.py) with its example arguments on the
+    card: K1 and K2, no plain-version call, first controls (8, 4) within the
+    thrust bounds; in f64 the same arguments agree with the CPU plain path
+    within 1e-8 (chip_smoke.py phase 17 (b), whose lanes all agree)."""
+    from learningagileflight_se3_torch.entry import entry, make_forward_step
+
+    fn, (dnn1, scen) = entry()
+    n = _counts()
+    u = fn(dnn1, scen)
+    _assert_kernels_only(n, "entry")
+    cfg = SolverConfig()
+    assert u.shape == (8, 4) and u.device.type == "cuda" and bool(((u >= cfg.u_lb) & (u <= cfg.u_ub)).all())
+    card = make_forward_step(device="cuda", dtype=torch.float64)(dnn1, scen)
+    cpu = make_forward_step(device="cpu", dtype=torch.float64)(dnn1, scen)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-8)

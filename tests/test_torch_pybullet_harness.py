@@ -42,6 +42,7 @@ NEW_MODULES = (
     "learningagileflight_se3_torch.utils.urdf",
     "learningagileflight_se3_torch.utils.mesh",
     "learningagileflight_se3_torch.solver.ilqr",
+    "learningagileflight_se3_torch.entry",
 )
 
 
@@ -112,7 +113,9 @@ def test_harness_import_is_guarded():
 
 def test_new_modules_import_without_jax():
     """Every module of this slice imports in a fresh interpreter where
-    `import jax` and the JAX package fail, and none pulls in pybullet."""
+    `import jax` and the JAX package fail (the flagship entry also builds
+    its forward step and loads its example arguments there), and none pulls
+    in pybullet."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -120,6 +123,8 @@ def test_new_modules_import_without_jax():
         f"for name in {NEW_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "from learningagileflight_se3_torch.solver.ilqr import make_mpc_solver\n"
+        "from learningagileflight_se3_torch.entry import entry\n"
+        "entry(device='cpu')\n"
         "assert 'pybullet' not in sys.modules\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib')) for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"

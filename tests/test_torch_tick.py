@@ -198,7 +198,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """ExternalSimController, run_rl_training, run_pretraining,
     run_imitation_training, make_closed_loop_sim, run_validation_sim,
     make_mesh, initialize_distributed (given the LAF_* variables), the
-    single-problem solver make_mpc_solver (whatever its inputs), the two
+    single-problem solver make_mpc_solver (whatever its inputs), the
+    flagship forward step (entry, make_forward_step), the two
     ablation scripts' mains and the benchmarks' runs (solve, kernel_check,
     latency, realtime, accuracy, scaling) run on the card unless given
     device="cpu": without a card their default raises before any work (no
@@ -236,6 +237,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mpc_solver(QuadParams(), CostWeights(), SolverConfig(horizon=4, max_iters=2))
+    from learningagileflight_se3_torch.entry import entry, make_forward_step
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_forward_step()
     monkeypatch.setenv("LAF_COORDINATOR_ADDRESS", "file://" + str(tmp_path / "store"))
     monkeypatch.setenv("LAF_NUM_PROCESSES", "2")
     monkeypatch.setenv("LAF_PROCESS_ID", "0")
