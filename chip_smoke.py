@@ -8,8 +8,9 @@ scores the shipped DNN2, stages 1 and 3 (pretraining, imitation), and the
 side paths (the validation flight, the omega-box continuation, the policy
 searches, the costates), the parallel-in-time sweep, multi-process
 data-parallel RL, the two ablation scripts, the card's f64 solve
-against the host's lifted-NLP oracle and the benchmarks
-(learningagileflight_se3_torch/benchmarks/), and fails (non-zero exit, no
+against the host's lifted-NLP oracle, the benchmarks
+(learningagileflight_se3_torch/benchmarks/) and the solver's loop as a
+replayed CUDA graph against its eager host loop, and fails (non-zero exit, no
 result line) if any phase fails or if there is no CUDA device.  Imports
 nothing of JAX.
 
@@ -187,6 +188,20 @@ Phases, each printing its numbers on lines of its own:
              (d) the forward step's time (host clock, synced, best of 3, not
              gated) at B=8 and at B=2048 (the shipped nn_deep on seeded
              scenarios) with the status histogram and launches
+  18 graph   the solver's DDP loop as a replayed CUDA graph (solver/
+             ilqr_batched.py, how every CUDA solve above runs) against
+             its eager host loop, on the solver inputs of six paths: the
+             bench point (B=2048, f32), a warm-started tick of phase 6's
+             replay (B=1), the flagship forward step (B=8), a warm replan of
+             phase 9's flight (B=128), the fd learning signal's probes
+             (B=2,304, f32) and the bench config in f64 (B=64); each with a
+             fresh solver: every MPCSolution field equal (torch.equal) over 3
+             graph and 3 eager solves taken in turns, both times (synced,
+             best of 3), host syncs a solve, captures and their time, the
+             graph pool's bytes, K1 / K2 launches a solve, each loop's busy
+             share under torch.profiler; gated: equal, no field changed by a
+             later replay of the same graph, one capture, at most
+             ceil(max_iters / GRAPH_BLOCK) + 2 host syncs
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of one synced solve of phase 4's solve bench at bench.py's config,
@@ -208,6 +223,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -446,6 +462,27 @@ def compared_oracle(row):
 PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect,
                "validation": compared_validation,
                **{f"oracle_{row}": (lambda device, row=row: compared_oracle(row)) for row in ACCURACY_ROWS}}
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Inside the block every batched solve (solver/ilqr_batched.py
+    BatchedSolver, whoever made it) appends (solver, args, kwargs), the
+    tensors cloned, to the yielded list, then runs as it would."""
+    from learningagileflight_se3_torch.solver.ilqr_batched import BatchedSolver
+
+    real, calls = BatchedSolver.__call__, []
+    keep = lambda v: v.clone() if torch.is_tensor(v) else v  # noqa: E731
+
+    def call(self, *args, **kw):
+        calls.append((self, [keep(a) for a in args], {k: keep(v) for k, v in kw.items()}))
+        return real(self, *args, **kw)
+
+    BatchedSolver.__call__ = call
+    try:
+        yield calls
+    finally:
+        BatchedSolver.__call__ = real
 
 
 def reset_launches():
@@ -1644,11 +1681,15 @@ class Smoke:
                         self.path_launches["parallel_sweep"] = n
                     sols[mode] = sol
                     hist = torch.bincount(sol.status.long(), minlength=5).tolist()
-                    log(f"parallel sweep: {mode}, {name}, B={B}: {best * 1e3:.2f} ms a solve (synced, best of "
-                        f"{reps}); converged {sol.converged.float().mean().item():.4f}, iterations mean "
+                    loop = "graph" if solve.graphed("cuda") else "eager"  # solver/ilqr_batched.py's rule
+                    log(f"parallel sweep: {mode}, {name}, B={B}, {loop} loop: {best * 1e3:.2f} ms a solve "
+                        f"(synced, best of {reps}{', the capture in it' if reps == 1 and loop == 'graph' else ''})"
+                        f"; converged {sol.converged.float().mean().item():.4f}, iterations mean "
                         f"{sol.iterations.float().mean().item():.2f} max {int(sol.iterations.max())}, status "
                         f"histogram {hist}; launches a solve K1 {n['K1'] / reps:.1f} K2 {n['K2'] / reps:.1f} "
                         f"[{self.smi}]")
+                    self.check((loop == "eager") == (mode == "parallel") and solve.captures == (loop == "graph"),
+                               f"phase 12 {mode}: the {loop} loop with {solve.captures} captures")
                     self.check(n["K1"] > 0 and (n["K2"] == 0) == (mode == "parallel"),
                                f"phase 12 {mode} {name} B={B}: kernel launches {n}")
                     self.check(read_plain_calls() == plain0, f"phase 12 {mode} moved a plain-version counter")
@@ -1998,6 +2039,123 @@ class Smoke:
             self.check(bool(torch.isfinite(out).all()), f"phase 17 {what}: first controls not finite")
 
 
+    # ------------------------------------------------------------ 18 graph
+    def graph(self):
+        """The solver's DDP loop as a replayed CUDA graph against its eager
+        host loop, on the inputs six paths give the solver: equal field for
+        field, both times, host syncs, captures, the graph pool, launches."""
+        from learningagileflight_se3_torch.benchmarks.problems import bench_args, scenarios
+        from learningagileflight_se3_torch.benchmarks.solve import bench_config
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams, RewardConfig, SolverConfig
+        from learningagileflight_se3_torch.entry import entry
+        from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+        from learningagileflight_se3_torch.ops.inputs import bench_problems
+        from learningagileflight_se3_torch.policy import make_fd_gradient_batched
+        from learningagileflight_se3_torch.sim.bench import fly
+        from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn1, load_dnn2
+
+        P, W = QuadParams(), CostWeights()
+        cases = [("bench point", (P, W, bench_config(50)), bench_args(scenarios(100, 2048), "cuda"), {})]
+        # the deployed tick (phase 6's budget), a warm-started solve of the contract's replay
+        if not hasattr(self, "contract"):
+            self.contract = np.load(os.path.join(REPO, "artifacts", "replay_contract.npz"))
+        z = self.contract
+        d_cfg = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
+                             ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
+        with recorded_solves() as calls:
+            self._replay(torch.float32, d_cfg, "secant", float(z["fixed_point_tol"]))
+        cases.append(("tick", calls[-1]))
+        # the flagship forward step's solve (phase 17)
+        fn, (dnn1, scen) = entry()
+        with recorded_solves() as calls:
+            fn(dnn1, scen)
+        cases.append(("entry", calls[-1]))
+        # a warm replan of the closed loop (phase 9's flight, seed 2024, its second replan)
+        scen, noise = bench_scenarios(bench_scenarios_path(2024))
+        with recorded_solves() as calls:
+            fly(load_dnn2(), scen, noise, steps=20, seed=2024, device="cuda")
+        cases.append(("closed-loop warm replan", [c for c in calls if c[2].get("U_init") is not None][-1]))
+        # the fd learning signal's solve (phase 8's fd step: 9 probes of 256 scenarios)
+        cfg = SolverConfig(horizon=50, max_iters=45, tol=1e-4, gtol=3e-4, no_progress_iters=10)
+        sc = sample_scenarios(torch.Generator(device="cuda").manual_seed(3), 256)
+        probs = scenario_to_problem(sc)
+        with torch.no_grad():
+            out = load_dnn1().to("cuda")(sc)
+        with recorded_solves() as calls:
+            make_fd_gradient_batched(P, W, cfg, RewardConfig())(
+                probs["x0"], torch.zeros((256, 4), device="cuda"), probs["goal_pos"], probs["gate_pts"],
+                out[:, 0:3], out[:, 3:6], out[:, 6])
+        cases.append(("fd RL batch", calls[-1]))
+        cases.append(("f64", (P, W, bench_config(50)), bench_problems(64, "cuda", seed=0), {}))
+
+        for case in cases:
+            if len(case) == 2:  # a recorded call: a fresh solver of its configuration
+                name, (solver, args, kw) = case
+                model = (solver.params, solver.weights, solver.cfg)
+            else:
+                name, model, args, kw = case
+            self._graph_against_eager(name, model, args, kw)
+
+    def _graph_against_eager(self, name, model, args, kw):
+        from learningagileflight_se3_torch.solver import ilqr_batched
+        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+
+        sys.path.insert(0, os.path.join(REPO, "scripts"))
+        from profile_rl_step import profiled_step
+
+        solver = make_batched_mpc_solver(*model)
+        B, dtype = args[0].shape[0], args[0].dtype
+        cap = solver.cfg.max_iters if kw.get("max_iters") is None else kw["max_iters"]
+        eager = lambda: solver.solution(solver.run_eager(*solver.setup(*args, **kw)))  # noqa: E731
+        graph = lambda: solver(*args, **kw)  # noqa: E731
+
+        def timed(fn):
+            reset_launches()
+            syncs = ilqr_batched.host_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sol = fn()
+            torch.cuda.synchronize()
+            return dict(sol=sol, s=time.perf_counter() - t0, syncs=ilqr_batched.host_syncs - syncs,
+                        launches=read_launches())
+
+        first = timed(graph)  # the capture, then the solve
+        runs = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager", "eager", "graph"):  # in turns
+            runs[kind].append(timed(eager if kind == "eager" else graph))
+        ref = runs["eager"][0]["sol"]
+        sols = [first["sol"]] + [r["sol"] for r in runs["graph"] + runs["eager"][1:]]
+        unequal = sorted({f for sol in sols for f, a, b in zip(ref._fields, sol, ref) if not torch.equal(a, b)})
+        # a later solve on the same graph (another cap) leaves an earlier solution as it was
+        with torch.no_grad():
+            solver(*args, **{**kw, "max_iters": 1})
+        torch.cuda.synchronize()
+        kept = runs["graph"][0]["sol"]
+        aliased = [f for f, a, b in zip(ref._fields, kept, ref) if not torch.equal(a, b)]
+        busy = {kind: profiled_step(lambda _: timed(fn), None)["busy_share"]
+                for kind, fn in (("eager", eager), ("graph", graph))}
+        best = {k: min(r["s"] for r in v) * 1e3 for k, v in runs.items()}
+        g, e = runs["graph"][0], runs["eager"][0]
+        sync_gate = -(-cap // ilqr_batched.GRAPH_BLOCK) + 2
+        log(f"graph {name} (B={B}, {str(dtype)[6:]}, H={solver.cfg.horizon}, max_iters={cap}, "
+            f"{'warm' if kw.get('U_init') is not None else 'cold'}): equal to eager in every field "
+            f"{not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; eager best of 3 "
+            f"{best['eager']:.2f} ms (all {[round(r['s'] * 1e3, 2) for r in runs['eager']]}), graph best of 3 "
+            f"{best['graph']:.2f} ms (all {[round(r['s'] * 1e3, 2) for r in runs['graph']]}), "
+            f"{best['eager'] / best['graph']:.2f}x; host syncs a solve eager {e['syncs']} graph {g['syncs']} "
+            f"(gate {sync_gate}); iterations max {int(ref.iterations.max())}; captures {solver.captures} in "
+            f"{solver.capture_seconds:.3f} s (first solve {first['s'] * 1e3:.1f} ms with it); graph pool "
+            f"{solver.pool_bytes()} B; launches a solve eager K1 {e['launches']['K1']} K2 {e['launches']['K2']}, "
+            f"graph K1 {g['launches']['K1']} K2 {g['launches']['K2']}; busy share (torch.profiler, one solve) "
+            f"eager {busy['eager']:.4f} graph {busy['graph']:.4f} [{self.smi}]")
+        self.check(not unequal, f"phase 18 {name}: graph and eager solves differ in {unequal}")
+        self.check(not aliased, f"phase 18 {name}: a later replay changed an earlier solution's {aliased}")
+        self.check(g["syncs"] <= sync_gate, f"phase 18 {name}: {g['syncs']} host syncs > {sync_gate}")
+        self.check(solver.captures == 1, f"phase 18 {name}: {solver.captures} captures")
+        self.check(min(g["launches"]["K1"], g["launches"]["K2"]) > 0, f"phase 18 {name}: graph launches")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
@@ -2041,7 +2199,7 @@ def drive(s, only):
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths),
               ("15 oracle, the card's f64 solve against the lifted oracle", s.accuracy),
               ("15 oracle, the native plant against the card's", s.native_plant),
-              ("16 benchmarks", s.benchmarks), ("17 entry", s.entry)]
+              ("16 benchmarks", s.benchmarks), ("17 entry", s.entry), ("18 graph", s.graph)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)

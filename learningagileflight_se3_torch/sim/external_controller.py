@@ -120,6 +120,8 @@ class ExternalSimController:
         self._tsolve.prepare(torch.zeros(13, **kw), self._final, torch.zeros((4, 3), **kw),
                              torch.zeros(3, **kw), self.w_rot)
         self._solve = make_batched_mpc_solver(self.params, self.weights, self.solver_cfg)
+        # and the solve's CUDA graph (solver/ilqr_batched.py), a batch of one
+        self._solve.prepare(1, dtype, self.device)
         H = self.solver_cfg.horizon
         # device-resident tick carry: previous control and warm-start U
         self.u = np.zeros(4)

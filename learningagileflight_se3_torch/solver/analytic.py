@@ -17,6 +17,7 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.core.rotations import quat_to_dcm_w2b
+from learningagileflight_se3_torch.utils.device import constant
 
 NX, NU = 13, 4
 NZ = NX + NU
@@ -153,7 +154,7 @@ def make_final_quadratics(weights: CostWeights):
         phi_z[..., 10:13] = 2.0 * weights.wwf * zH[..., 10:13]
         phi_zz[..., 10:13, 10:13] = 2.0 * weights.wwf * I3
         if weights.wqf != 0.0:
-            Hg = attitude_curvature(torch.tensor([1.0, 0.0, 0.0, 0.0], **kw))
+            Hg = attitude_curvature(constant((1.0, 0.0, 0.0, 0.0), **kw))
             phi_z[..., 6:10] = weights.wqf * (zH[..., 6:10] @ Hg)
             phi_zz[..., 6:10, 6:10] = weights.wqf * Hg
         return phi_z, phi_zz

@@ -4,7 +4,8 @@ A debugging and checking aid: inside `watched_kernels(on_call)` every call
 the batched solver (solver/ilqr_batched.py) makes to its K1 (rollout) and K2
 (backward sweep) wrappers, and to the parallel sweep where that replaces
 K2, is reported with its place in the solve, its arguments and its
-outputs.  chip_smoke.py and the card tests use it to hold
+outputs (on the card through the solver's eager loop: a graph replay
+makes no Python call).  chip_smoke.py and the card tests use it to hold
 the kernels against their plain versions on the inputs a path really gives
 them, and to see where two paths part (`decision_record`, `first_tie`);
 `kept_solutions` keeps the whole solution of an entry point's solve.  The
@@ -33,9 +34,16 @@ def watched_kernels(on_call):
     `trip` (from 0) of that iteration, the rollout under that sweep's gains;
     "K1 cost": an open-loop rollout at the start of a solve (the warm
     start's guard, the initial trajectory), `iteration` -1 and `trip` None.
-    `args` and `kwargs` are the wrapper's own, `out` what it returned."""
+    `args` and `kwargs` are the wrapper's own, `out` what it returned.
+
+    A CUDA solve replays a captured graph, which makes no Python call, so
+    inside the block the solver takes its eager loop on the card too
+    (`ilqr_batched._eager_on_card`, set here and restored on exit): the
+    host loops with a sync per DDP iteration and line-search trip, the same
+    kernels on the same inputs, but none of the gated trips a replay runs."""
     real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward
     real_sweep = ilqr_batched.parallel_backward
+    eager_before = ilqr_batched._eager_on_card
     at = dict(solve=-1, iteration=-1, trip=0, kk=None)
 
     def sweep(kind, real):
@@ -60,11 +68,13 @@ def watched_kernels(on_call):
 
     ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, sweep("K2", real_k2)
     ilqr_batched.parallel_backward = sweep("parallel sweep", real_sweep)
+    ilqr_batched._eager_on_card = True
     try:
         yield
     finally:
         ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = real_k1, real_k2
         ilqr_batched.parallel_backward = real_sweep
+        ilqr_batched._eager_on_card = eager_before
 
 
 def capture_inputs(run, solve=0, k2_call=10):

@@ -7,6 +7,8 @@ raises here instead of running quietly on the CPU.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -33,3 +35,14 @@ def platform_line(device) -> str:
     out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.cache
+def constant(values: tuple, dtype, device) -> torch.Tensor:
+    """torch.tensor(values) in `dtype` on `device`, made once per dtype and
+    device and shared by every later call, so read it and never write it.
+    The host-to-device copy of torch.tensor cannot be captured in a CUDA
+    graph: the captured solver loop (solver/ilqr_batched.py) takes its
+    small constants from here, made at the warm-up that precedes a
+    capture."""
+    return torch.tensor(values, dtype=dtype, device=device)

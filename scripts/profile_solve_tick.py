@@ -4,12 +4,15 @@ imitation epoch on a CUDA card.
   - The batched solve at the bench.py point (B=2048, H=50, f32,
     SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4,
     ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)) on seeded
-    scenarios: the host time of --reps solves, synced, then one more solve
-    under torch.profiler.
+    scenarios: the host time and host syncs of --reps solves, synced (the
+    DDP loop as a replayed CUDA graph, solver/ilqr_batched.py), then one
+    more solve under torch.profiler, and the same solve on the eager
+    loop (the host loops) under torch.profiler.
   - The 10 Hz tick at the deployed budget (PYBULLET, H=50, max_iters=30,
     secant traversal-time solver, f32, B=1) replaying
     artifacts/replay_contract.npz: one warm-up pass, one timed pass (per-tick
-    host time, each tick ending in its host fetch), one pass under
+    host time, each tick ending in its host fetch; the solver's host syncs
+    over the pass), one pass under
     torch.profiler.
   - The closed loop (--path closed_loop): the nn3_1 DNN2 through the 128
     exported scenarios of seed 2024 x 500 steps at the accelerator settings
@@ -53,6 +56,7 @@ from profile_rl_step import profiled_step  # noqa: E402
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig, Variant  # noqa: E402
 from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem  # noqa: E402
 from learningagileflight_se3_torch.sim.external_controller import ExternalSimController  # noqa: E402
+from learningagileflight_se3_torch.solver import ilqr_batched  # noqa: E402
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver  # noqa: E402
 from learningagileflight_se3_torch.utils.weights import load_dnn2  # noqa: E402
 
@@ -85,21 +89,29 @@ def report(what, prof):
 def solve_part(reps=3):
     B = 2048
     solve = make_batched_mpc_solver(QuadParams(), CostWeights(), BENCH_CFG)
-    solve(*bench_args(0, B))
-    times = []
+    solve(*bench_args(0, B))  # captures the solve's CUDA graph
+    times, syncs = [], []
     for i in range(reps):
         args = bench_args(100 + i, B)
         torch.cuda.synchronize()
+        n = ilqr_batched.host_syncs
         t0 = time.perf_counter()
         sol = solve(*args)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        syncs.append(ilqr_batched.host_syncs - n)
         print(f"solve: B={B} {times[-1]:.4f} s (host, synced), {B / times[-1]:.1f} solves/s, mean iters "
-              f"{sol.iterations.float().mean().item():.2f}, line-search trips {int(sol.ls_evals)}", flush=True)
+              f"{sol.iterations.float().mean().item():.2f}, line-search trips {int(sol.ls_evals)}, "
+              f"{syncs[-1]} host syncs", flush=True)
     args = bench_args(100, B)
     prof = profiled_step(lambda _: solve(*args), None)
-    report("solve", prof)
-    return dict(batch=B, solve_s=times, profiled=prof)
+    report("solve (graph)", prof)
+    # the same solve on the eager loop (the host loops), for comparison
+    n = ilqr_batched.host_syncs
+    eager = profiled_step(lambda _: solve.solution(solve.run_eager(*solve.setup(*args))), None)
+    report("solve (eager)", eager)
+    return dict(batch=B, solve_s=times, host_syncs=syncs, profiled=prof,
+                eager=dict(profiled=eager, host_syncs=ilqr_batched.host_syncs - n))
 
 
 def tick_part():
@@ -125,14 +137,16 @@ def tick_part():
         return np.asarray(lat) * 1e3
 
     replay()  # warm-up pass
+    syncs = ilqr_batched.host_syncs
     ms = replay()
+    syncs = ilqr_batched.host_syncs - syncs
     n = len(ms)
     print(f"tick: {n} ticks, per-tick ms {[round(float(x), 3) for x in ms]}; p50 {np.percentile(ms, 50):.3f} "
-          f"p90 {np.percentile(ms, 90):.3f}", flush=True)
+          f"p90 {np.percentile(ms, 90):.3f}; the solver's host syncs {syncs} over the pass", flush=True)
     prof = profiled_step(lambda _: replay(), None)
     report(f"tick pass ({n} ticks)", prof)
     return dict(ticks=n, tick_ms=ms.tolist(), p50_ms=float(np.percentile(ms, 50)),
-                p90_ms=float(np.percentile(ms, 90)), profiled=prof)
+                p90_ms=float(np.percentile(ms, 90)), solver_host_syncs=syncs, profiled=prof)
 
 
 def closed_loop_part():

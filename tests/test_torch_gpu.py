@@ -2,8 +2,11 @@
 PyTorch version on the card (also on the omega-box continuation's inputs),
 K3 against K2, the kernel-backed solver against the plain solver, the RL
 learning signals, the closed loop and the imitation
-collect on the card against the CPU, the entry points' default device, and
-the flagship forward step on the kernels.
+collect on the card against the CPU, the entry points' default device,
+the flagship forward step on the kernels, and the solver's DDP loop as a
+replayed CUDA graph against the eager host loop (equal field for field, no
+aliasing, the launch counts, the parallel sweep, the watchers' eager
+loop, a failed capture raising).
 Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
@@ -620,3 +623,163 @@ def test_entry_runs_on_the_kernels(cuda):
     card = make_forward_step(device="cuda", dtype=torch.float64)(dnn1, scen)
     cpu = make_forward_step(device="cpu", dtype=torch.float64)(dnn1, scen)
     torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-8)
+
+
+# ---- the solver's DDP loop as a replayed CUDA graph (solver/ilqr_batched.py)
+
+GRAPH_CFGS = {  # bench.py's point, the deployed tick, the flagship forward step
+    "bench": dict(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4, ls_adaptive=True, ls_max_trips=4,
+                  no_progress_iters=10),
+    "tick": dict(horizon=50, max_iters=30, tol=1e-4, gtol=3e-4, ls_adaptive=True, ls_max_trips=4,
+                 no_progress_iters=10),
+    "entry": dict(horizon=50, max_iters=30, tol=1e-6, gtol=1e-5),
+}
+
+
+def _graph_case(B, dtype, cfg, seed=0, **kw):
+    from learningagileflight_se3_torch.ops.inputs import bench_problems
+
+    solver = make_batched_mpc_solver(QuadParams(), CostWeights(), SolverConfig(**GRAPH_CFGS[cfg], **kw))
+    return solver, bench_problems(B, "cuda", seed=seed, dtype=dtype)
+
+
+def _unequal(a, b):
+    return [name for name, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+
+
+@pytest.mark.parametrize("B, dtype, cfg", [(1, torch.float32, "tick"), (8, torch.float32, "entry"),
+                                           (2048, torch.float32, "bench"), (64, torch.float64, "bench")],
+                         ids=["B1-f32-tick", "B8-f32-entry", "B2048-f32-bench", "B64-f64-bench"])
+def test_graph_solve_equals_eager_solve(cuda, B, dtype, cfg):
+    """The graph loop against the eager host loop on the card, field for
+    field (torch.equal): the same kernels on the same inputs, the gated
+    trips and iterations no-ops; one capture; at most ceil(max_iters / k)
+    + 2 host syncs."""
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    solver, args = _graph_case(B, dtype, cfg)
+    with torch.no_grad():
+        eager = solver.solution(solver.run_eager(*solver.setup(*args)))
+        n = ilqr_batched.host_syncs
+        graph = solver(*args)
+        syncs = ilqr_batched.host_syncs - n
+    assert _unequal(graph, eager) == []
+    assert solver.captures == 1 and solver.pool_bytes() > 0
+    assert syncs <= -(-GRAPH_CFGS[cfg]["max_iters"] // ilqr_batched.GRAPH_BLOCK) + 2
+
+
+def test_graph_solve_with_the_goal_attitude_weight(cuda):
+    """CostWeights.wqf != 0 adds the terminal attitude term, whose constant
+    (the identity quaternion) comes from utils/device.py's `constant` and
+    not a host copy, so the block still captures; equal to the eager solve."""
+    solver = make_batched_mpc_solver(QuadParams(), CostWeights(wqf=1.0), SolverConfig(**GRAPH_CFGS["entry"]))
+    args = _graph_case(8, torch.float32, "entry")[1]
+    with torch.no_grad():
+        eager = solver.solution(solver.run_eager(*solver.setup(*args)))
+        graph = solver(*args)
+    assert solver.captures == 1 and _unequal(graph, eager) == []
+
+
+def test_graph_solution_outlives_the_next_replay(cuda):
+    """An MPCSolution owns its tensors: a second solve on the same captured
+    graph, and a third warm-started from the first one's controls (the
+    closed loop's and the tick's chain), leave the first one as it was."""
+    solver, args = _graph_case(64, torch.float32, "bench")
+    with torch.no_grad():
+        first = solver(*args)
+        kept = [t.clone() for t in first]
+        second = solver(*_graph_case(64, torch.float32, "bench", seed=5)[1])
+        solver(*args, U_init=first.control_traj)
+        torch.cuda.synchronize()
+    assert solver.captures == 1
+    assert [name for name, a, b in zip(first._fields, first, kept) if not torch.equal(a, b)] == []
+    assert not torch.equal(second.control_traj, first.control_traj)
+
+
+def test_graph_launch_counts(cuda):
+    """The wrappers count kernel executions: a capture launches nothing and
+    each replay adds one block's K1 / K2 launches.  So a graph solve counts
+    the eager solve's launches plus the gated ones: k K2 launches a block,
+    n_trips K1 launches an iteration, the rest of the last live block and
+    the one queued behind it."""
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    B, k, cap = 256, ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
+    solver, args = _graph_case(B, torch.float32, "bench")
+    with torch.no_grad():
+        solver.prepare(B, torch.float32, "cuda")
+        n1, n2 = rollout.launches, riccati_fused.launches
+        eager = solver.solution(solver.run_eager(*solver.setup(*args)))
+        e1, e2 = rollout.launches - n1, riccati_fused.launches - n2
+        n1, n2 = rollout.launches, riccati_fused.launches
+        graph = solver(*args)
+        g1, g2 = rollout.launches - n1, riccati_fused.launches - n2
+    assert _unequal(graph, eager) == []
+    iterations = int(eager.iterations.max())
+    blocks = min(-(-iterations // k) + 1, -(-cap // k))
+    assert (e1, e2) == (1 + int(eager.ls_evals), iterations)
+    assert (g1, g2) == (1 + blocks * k * solver.n_trips, blocks * k)
+
+
+def test_watchers_run_the_eager_loop_on_the_card(cuda):
+    """Inside watched_kernels the card's solve takes the eager loop (the
+    watcher sees every K2 call and line-search trip) and the flag is
+    restored on exit; the result equals the graph solve's."""
+    from learningagileflight_se3_torch.solver import ilqr_batched
+    from learningagileflight_se3_torch.solver.watch import watched_kernels
+
+    solver, args = _graph_case(8, torch.float32, "entry")
+    calls = []
+    with torch.no_grad():
+        graph = solver(*args)
+        with watched_kernels(lambda kind, *a: calls.append(kind)):
+            watched = solver(*args)
+    assert not ilqr_batched._eager_on_card
+    assert calls.count("K2") == int(watched.iterations.max()) and calls.count("K1") == int(watched.ls_evals)
+    assert calls.count("K1 cost") == 1
+    assert _unequal(graph, watched) == []
+
+
+def test_parallel_sweep_keeps_the_eager_loop(cuda):
+    """cfg.backward="parallel" solves on the card with the eager host loop
+    (`BatchedSolver.graphed`): no capture, a host sync per iteration, the
+    block loop's result.  The reason, checked: a capture of its block
+    raises, because the batched LU of torch.linalg.solve_ex cannot be
+    captured."""
+    from learningagileflight_se3_torch.ops.inputs import bench_problems
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    solver = make_batched_mpc_solver(QuadParams(), CostWeights(),
+                                     SolverConfig(horizon=50, max_iters=20, use_ddp=False, backward="parallel"))
+    args = bench_problems(64, "cuda", seed=2, dtype=torch.float64)
+    with torch.no_grad():
+        n = ilqr_batched.host_syncs
+        sol = solver(*args)
+        syncs = ilqr_batched.host_syncs - n
+        blocks = solver.solution(solver.run_blocks(*solver.setup(*args)))
+        assert solver.captures == 0 and syncs >= int(sol.iterations.max())
+        assert _unequal(sol, blocks) == []
+        with pytest.raises(RuntimeError):
+            solver.run_graph(*solver.setup(*args))
+    assert solver.captures == 0
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A block that syncs with the host cannot be captured, and the solve
+    raises: nothing falls back to the eager loop.  (At the end of the file
+    with the parallel sweep's: a failed capture leaves the process usable,
+    but nothing else depends on that here.)"""
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    real = ilqr_batched.riccati_backward
+
+    def syncing(*a, **kw):
+        out = real(*a, **kw)
+        float(out[2].sum())  # a host read: forbidden while a stream is captured
+        return out
+
+    monkeypatch.setattr(ilqr_batched, "riccati_backward", syncing)
+    solver, args = _graph_case(8, torch.float32, "entry")
+    with pytest.raises(RuntimeError), torch.no_grad():
+        solver(*args)
+    assert solver.captures == 0

@@ -6,9 +6,14 @@ tests/test_solver.py::TestBatchedPallasSolver; per-lane independence (rows
 of a ragged batch of 100 equal those of a batch of 128); a batch of one
 equal to row 0 of a batch of 8 in the converged regime; the runtime
 iteration cap; the warm-start guard.  The kernel path is held against the
-plain path on the card by tests/test_torch_gpu.py."""
+plain path on the card by tests/test_torch_gpu.py.  The JAX comparison runs
+both forms of the solver's loop (the eager host loop, and the blocks a
+CUDA graph captures on the card)."""
+
+import functools
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -42,13 +47,28 @@ def _solver(**kw):
     return make_batched_mpc_solver(tcfg.QuadParams(), tcfg.CostWeights(), tcfg.SolverConfig(**kw))
 
 
-def test_solver_matches_jax_pallas_interpret(rng):
-    args = _problems(rng, 128)
+@functools.cache
+def _pallas_solution(seed, B):
+    """The JAX batched Pallas solver (interpret mode) at H=6, 12 iterations,
+    on _problems(default_rng(seed), B): compiled once for the module."""
     psolve = jax.jit(make_batched_mpc_solver_pallas(
         jcfg.QuadParams(), jcfg.CostWeights(), jcfg.SolverConfig(horizon=6, max_iters=12),
         interpret=True))
-    ps = psolve(*[jnp.asarray(a) for a in args])
-    ts = _solver(horizon=6, max_iters=12)(*_torch_args(args))
+    return psolve(*[jnp.asarray(a) for a in _problems(np.random.default_rng(seed), B)])
+
+
+@pytest.mark.parametrize("loop", ["eager", "blocks"])
+def test_solver_matches_jax_pallas_interpret(rng, loop):
+    """Both forms of the DDP loop (solver/ilqr_batched.py): the host loop,
+    and the blocks of gated iterations a CUDA graph captures, run here
+    without a capture."""
+    args = _problems(rng, 128)  # rng is default_rng(0)
+    ps = _pallas_solution(0, 128)
+    solver = _solver(horizon=6, max_iters=12)
+    if loop == "eager":
+        ts = solver(*_torch_args(args))
+    else:
+        ts = solver.solution(solver.run_blocks(*solver.setup(*_torch_args(args))))
     np.testing.assert_array_equal(ts.iterations.numpy(), np.asarray(ps.iterations))
     np.testing.assert_array_equal(ts.status.numpy(), np.asarray(ps.status))
     Jp = np.asarray(ps.cost)
