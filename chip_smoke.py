@@ -9,10 +9,11 @@ side paths (the validation flight, the omega-box continuation, the policy
 searches, the costates), the parallel-in-time sweep, multi-process
 data-parallel RL, the two ablation scripts, the card's f64 solve
 against the host's lifted-NLP oracle, the benchmarks
-(learningagileflight_se3_torch/benchmarks/) and the solver's loop as a
-replayed CUDA graph against its eager host loop, and fails (non-zero exit, no
-result line) if any phase fails or if there is no CUDA device.  Imports
-nothing of JAX.
+(learningagileflight_se3_torch/benchmarks/), the solver's loop as a
+replayed CUDA graph against its eager host loop, and the flight loop (the
+t-solver, the tick and the closed loop as CUDA graphs of conditional
+blocks) against its eager drives, and fails (non-zero exit, no result line)
+if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
   1 device   the nvidia-smi name / power limit, torch and CUDA versions, nvcc
@@ -197,16 +198,41 @@ Phases, each printing its numbers on lines of its own:
              (B=2,304, f32) and the bench config in f64 (B=64); each with a
              fresh solver: every MPCSolution field equal (torch.equal) over 3
              graph and 3 eager solves taken in turns, both times (synced,
-             best of 3), host syncs a solve, captures and their time, the
+             best of 3), host reads a solve, captures and their time, the
              graph pool's bytes, K1 / K2 launches a solve, each loop's busy
              share under torch.profiler; gated: equal, no field changed by a
              later replay of the same graph, one capture, at most
-             ceil(max_iters / GRAPH_BLOCK) + 2 host syncs
+             ceil(max_iters / GRAPH_BLOCK) + 2 host reads (run after phase 19)
+  19 flight loop  the JAX package's device loops around the solver as CUDA
+             graphs whose loops are chains of conditional IF nodes
+             (utils/graphs.py; the tick and the flights of phases 6, 9 and
+             16 run this way too): (a) the t-solver's graph against its
+             eager loop on the card, on the contract's ticks (B=1, both
+             accels) and the first 50 steps' arguments of seed 2024's flight
+             (B=128, "reference", tol 1e-3), f32 and f64: t and iterations
+             equal, host reads (gate 0), iterations and DNN2 evaluations
+             per solve (p50, p90, max) and the conditional blocks run, from
+             the device counter, times in turns; (b) the tick as one graph
+             against the tick run eagerly on the card (the watchers' drive),
+             the f64 replay contract (wrench 1e-4, t 1e-6) and the deployed
+             budget in f32: actions and t equal, one host read a tick, p50 /
+             p90, the capture's time and pool; (c) the closed loop's hold and
+             replan graphs against the host step loop (each t-solve and
+             solve on its own graph), seed 2024's 128 x 500 flight and its
+             Kalman run: every ClosedLoopLog field equal, no host read
+             inside a flight, wall times, K1 / K2 launches from the device
+             ledger, captures and pool; a second graph flight's time; (d) a
+             solve as a chain of
+             conditional blocks in a graph of its own against run_graph at
+             the bench point (B=2048, f32) and at B=1: equal fields, times
+             in turns, host reads
 
 The last three lines are the kernels JSON (each row's `launches` is the
 count of one synced solve of phase 4's solve bench at bench.py's config,
 the main path; `launches_by_path` each path's own, "solve_bench" the whole
-solve bench's, "entry" one call of the flagship forward step; `bound_ms`
+solve bench's, "entry" one call of the flagship forward step, the tick's and
+the flights' with the launches of their conditional bodies, which the
+device ledger counts (utils/graphs.py settle); `bound_ms`
 the least time the card could take at B=2048, `library_ms` null: no
 single PyTorch call computes these functions), the nvidia-smi line
 and {"ok": true, "device": {...}}.  Every time is printed with the card's
@@ -223,8 +249,10 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import shutil
@@ -468,34 +496,66 @@ PLAIN_SIDES = {"closed_loop": compared_closed_loop, "collect": compared_collect,
 def recorded_solves():
     """Inside the block every batched solve (solver/ilqr_batched.py
     BatchedSolver, whoever made it) appends (solver, args, kwargs), the
-    tensors cloned, to the yielded list, then runs as it would."""
+    tensors cloned, to the yielded list, then runs as it would on its eager
+    drive (the watchers' flag, utils/graphs.py eager_on_card: a tick or a
+    flight step captured as a graph would hand the recorder tensors that a
+    capture has not filled)."""
     from learningagileflight_se3_torch.solver.ilqr_batched import BatchedSolver
+    from learningagileflight_se3_torch.utils import graphs
 
     real, calls = BatchedSolver.__call__, []
     keep = lambda v: v.clone() if torch.is_tensor(v) else v  # noqa: E731
 
     def call(self, *args, **kw):
-        calls.append((self, [keep(a) for a in args], {k: keep(v) for k, v in kw.items()}))
+        calls.append((self, [keep(a) for a in args], {k: keep(v) for k, v in kw.items() if k != "drive"}))
         return real(self, *args, **kw)
 
     BatchedSolver.__call__ = call
+    eager_before, graphs.eager_on_card = graphs.eager_on_card, True
     try:
         yield calls
     finally:
         BatchedSolver.__call__ = real
+        graphs.eager_on_card = eager_before
+
+
+@contextlib.contextmanager
+def recorded_tsolves():
+    """Inside the block every traversal-time solve (sim/tsolver.py) appends
+    its arguments (w as a tensor of t's shape), cloned, to the yielded list."""
+    from learningagileflight_se3_torch.sim.tsolver import TraversalTimeSolver
+
+    real, calls = TraversalTimeSolver.__call__, []
+
+    def call(self, *args, **kw):
+        calls.append([a.clone() for a in self._args(*args)])
+        return real(self, *args, **kw)
+
+    TraversalTimeSolver.__call__ = call
+    try:
+        yield calls
+    finally:
+        TraversalTimeSolver.__call__ = real
 
 
 def reset_launches():
-    """Set the launch count of every kernel wrapper to 0."""
+    """Set the launch count of every kernel wrapper to 0 (the launches that
+    conditional graph bodies made on the card before now included)."""
     from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
+    from learningagileflight_se3_torch.utils import graphs
 
+    graphs.settle()
     rollout.launches = riccati_fused.launches = riccati_unfused.launches = 0
 
 
 def read_launches():
-    """{"K1": n, "K2": n, "K3": n}: each kernel wrapper's launch count."""
+    """{"K1": n, "K2": n, "K3": n}: each kernel wrapper's launch count, with
+    the launches that conditional graph bodies made on the card (the device
+    ledger, utils/graphs.py settle: one host read, after the path)."""
     from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
+    from learningagileflight_se3_torch.utils import graphs
 
+    graphs.settle()
     return dict(K1=rollout.launches, K2=riccati_fused.launches, K3=riccati_unfused.launches)
 
 
@@ -584,9 +644,11 @@ class Smoke:
         from learningagileflight_se3_torch.ops import build, riccati_unfused, rollout
 
         t0 = time.perf_counter()
-        lib = build.library()
-        log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s) -> "
-            f"{os.path.relpath(lib.path, REPO)}")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
+            lib, glib = [f.result() for f in [pool.submit(build.library), pool.submit(build.graph_library)]]
+        log(f"build: {time.perf_counter() - t0:.2f} s (nvcc: kernels {lib.build_seconds:.2f} s, graph "
+            f"conditional nodes {glib.build_seconds:.2f} s) -> {os.path.relpath(lib.path, REPO)}, "
+            f"{os.path.relpath(glib.path, REPO)}")
         for line in lib.ptxas_log.splitlines():
             if "Compiling entry" in line or "Used" in line or "stack frame" in line:
                 log(f"ptxas: {line.strip()}")
@@ -734,9 +796,13 @@ class Smoke:
         self.check(out["ok"], "phase 5 kernel path disagrees with the plain path")
 
     # -------------------------------------------------------------- 6 tick
-    def _replay(self, dtype, cfg, accel, tol):
+    def _replay(self, dtype, cfg, accel, tol, reads=None, made=None):
+        """One pass of a fresh ExternalSimController over the replay
+        contract: (actions, traversal times, per-tick host seconds); each
+        tick's host reads appended to `reads`, the controller to `made`."""
         from learningagileflight_se3_torch.config import Variant
         from learningagileflight_se3_torch.sim.external_controller import ExternalSimController
+        from learningagileflight_se3_torch.utils import graphs
         from learningagileflight_se3_torch.utils.weights import load_dnn2
 
         z = self.contract
@@ -748,14 +814,19 @@ class Smoke:
             solver_cfg=cfg, fixed_point_tol=tol, fixed_point_accel=accel,
             device="cuda", dtype=dtype,
         )
+        if made is not None:
+            made.append(ctrl)
         acts, ts, lat = [], [], []
         for k in range(len(z["tick_steps"])):
             obs = z["observations"][k]
+            n = graphs.host_reads
             t0 = time.perf_counter()
             a, t = ctrl.compute_control(step=int(z["tick_steps"][k]), cur_pos=obs[0:3],
                                         cur_quat_xyzw=obs[3:7], cur_vel=obs[10:13],
                                         cur_euler_rates=obs[13:16], cur_rpy=obs[7:10])
             lat.append(time.perf_counter() - t0)  # ends in the tick's host fetch
+            if reads is not None:
+                reads.append(graphs.host_reads - n)
             acts.append(a)
             ts.append(t)
         return np.asarray(acts), np.asarray(ts), np.asarray(lat)
@@ -2099,6 +2170,7 @@ class Smoke:
     def _graph_against_eager(self, name, model, args, kw):
         from learningagileflight_se3_torch.solver import ilqr_batched
         from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        from learningagileflight_se3_torch.utils import graphs
 
         sys.path.insert(0, os.path.join(REPO, "scripts"))
         from profile_rl_step import profiled_step
@@ -2111,13 +2183,13 @@ class Smoke:
 
         def timed(fn):
             reset_launches()
-            syncs = ilqr_batched.host_syncs
+            syncs = graphs.host_reads
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.no_grad():
                 sol = fn()
             torch.cuda.synchronize()
-            return dict(sol=sol, s=time.perf_counter() - t0, syncs=ilqr_batched.host_syncs - syncs,
+            return dict(sol=sol, s=time.perf_counter() - t0, syncs=graphs.host_reads - syncs,
                         launches=read_launches())
 
         first = timed(graph)  # the capture, then the solve
@@ -2156,10 +2228,260 @@ class Smoke:
         self.check(min(g["launches"]["K1"], g["launches"]["K2"]) > 0, f"phase 18 {name}: graph launches")
 
 
+    # ------------------------------------------------------- 19 flight loop
+    def flight_loop(self):
+        """The flight loop on the card as the JAX package runs it: the
+        t-solver's while_loops, the tick and the closed loop's scan as CUDA
+        graphs whose loops are chains of conditional blocks, against their
+        eager drives on the card."""
+        self._flight_loop_tsolver()
+        self._flight_loop_tick()
+        self._flight_loop_flights()
+        self._flight_loop_run_chain()
+
+    def _flight_loop_tsolver(self):
+        """(a) the t-solver's graph against its eager loop, bit for bit: the
+        tick's arguments (B=1, the contract's ticks, both accels) and the
+        first 50 steps' of seed 2024's flight (B=128, "reference", tol 1e-3),
+        f32 and f64; host reads, iterations from the device counter, times."""
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config
+        from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+        from learningagileflight_se3_torch.sim.external_controller import euler_rates_to_body, quat_xyzw_to_wxyz
+        from learningagileflight_se3_torch.sim.tsolver import TSOLVE_BLOCK, make_traversal_time_solver
+        from learningagileflight_se3_torch.utils import graphs
+        from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+        if not hasattr(self, "contract"):
+            self.contract = np.load(os.path.join(REPO, "artifacts", "replay_contract.npz"))
+        z = self.contract
+        tick_args = []
+        for k in range(len(z["tick_steps"])):
+            obs, i = z["observations"][k], int(z["tick_steps"][k])
+            state = np.hstack([obs[0:3] - z["origin"], obs[10:13], quat_xyzw_to_wxyz(obs[3:7]),
+                               euler_rates_to_body(obs[13:16], obs[7:10])])
+            tick_args.append([torch.tensor(np.asarray(a, np.float64)) for a in
+                              (state, z["final_point"], z["gate_moves"][i], z["gate_vel"][i], float(z["w_rot"]))])
+        scen, noise = bench_scenarios(bench_scenarios_path(2024))
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=50, device="cuda")
+        with recorded_tsolves() as flight_args:
+            sim(scen, gate_noise=noise[:, :50], drive="eager")
+        cases = [(f"B=1 tick, {accel}", accel, float(z["fixed_point_tol"]), tick_args) for accel in ("reference", "secant")]
+        cases.append(("B=128 flight, reference", "reference", 1e-3, flight_args))
+        for what, accel, tol, arg_sets in cases:
+            for dtype in (torch.float32, torch.float64):
+                solver = make_traversal_time_solver(load_dnn2().to(device="cuda", dtype=dtype), tol=tol, accel=accel)
+                solver.count = torch.zeros(2, dtype=torch.int32, device="cuda")
+                unequal, reads, iters, blocks = 0, 0, [], []
+                for args in arg_sets:
+                    args = [a.to(device="cuda", dtype=dtype) for a in args]
+                    solver.count.zero_()
+                    eager = solver(*args, drive="eager")
+                    n_it = solver.count.tolist()[1]
+                    solver(*args)  # the first call of a shape captures (its warm-up counts too)
+                    solver.count.zero_()
+                    n = graphs.host_reads
+                    graph = solver(*args)
+                    reads += graphs.host_reads - n
+                    c = solver.count.tolist()
+                    unequal += int(not torch.equal(graph, eager) or c[1] != n_it)
+                    iters.append(c[1])
+                    blocks.append(c[0])
+                it = np.asarray(iters)
+                per_iter, seeds = (1, 1) if accel == "reference" else (2, 2)
+                ev = seeds + per_iter * it
+                line = (f"flight loop t-solver {what} {str(dtype)[6:]}: graph equal to eager in "
+                        f"{len(arg_sets) - unequal} of {len(arg_sets)} solves (t and iterations); host reads a "
+                        f"graph solve {reads / len(arg_sets):.2f}; iterations p50 {np.percentile(it, 50):.1f} "
+                        f"p90 {np.percentile(it, 90):.1f} max {it.max()} (cap {solver.max_iters}), DNN2 evaluations "
+                        f"p50 {np.percentile(ev, 50):.1f} p90 {np.percentile(ev, 90):.1f} max {ev.max()}; conditional "
+                        f"blocks run p50 {np.percentile(blocks, 50):.1f} of {solver.n_blocks} (block "
+                        f"{TSOLVE_BLOCK}), gated no-op iterations {int(np.sum(np.asarray(blocks) * TSOLVE_BLOCK - it))} "
+                        f"of {int(np.sum(np.asarray(blocks) * TSOLVE_BLOCK))}; captures {solver.captures.count} in "
+                        f"{solver.captures.seconds:.3f} s")
+                if dtype == torch.float32:  # times in turns on the first arguments, best of 3
+                    args = [a.to(device="cuda", dtype=dtype) for a in arg_sets[0]]
+                    times = {"eager": [], "graph": []}
+                    for kind in ("eager", "graph", "graph", "eager", "eager", "graph"):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        solver(*args, drive="eager" if kind == "eager" else None)
+                        torch.cuda.synchronize()
+                        times[kind].append((time.perf_counter() - t0) * 1e3)
+                    line += (f"; time a solve (first arguments, {iters[0]} iterations, host clock, synced, best of "
+                             f"3) eager {min(times['eager']):.3f} ms, graph {min(times['graph']):.3f} ms")
+                log(line + f" [{self.smi}]")
+                self.check(unequal == 0, f"phase 19 t-solver {what} {dtype}: {unequal} solves differ from eager")
+                self.check(reads == 0, f"phase 19 t-solver {what} {dtype}: {reads} host reads in graph solves")
+
+    def _flight_loop_tick(self):
+        """(b) the tick graph against the tick run eagerly on the card: the f64
+        replay contract through the graph, f32 at the deployed budget, p50 and
+        p90, host reads a tick, the capture and its pool."""
+        from learningagileflight_se3_torch.config import SolverConfig
+        from learningagileflight_se3_torch.utils import graphs
+
+        z = self.contract
+        tol = float(z["fixed_point_tol"])
+        c_cfg = SolverConfig(horizon=int(z["solver_horizon"]), max_iters=int(z["solver_max_iters"]),
+                             u_ub=float(z["solver_u_ub"]))
+        d_cfg = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
+                             ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
+        for what, dtype, cfg, accel in (("replay contract f64", torch.float64, c_cfg, "reference"),
+                                        ("deployed budget f32", torch.float32, d_cfg, "secant")):
+            graphs.eager_on_card = True
+            try:
+                acts_e, ts_e, lat_e = self._replay(dtype, cfg, accel, tol)
+            finally:
+                graphs.eager_on_card = False
+            reads, made = [], []
+            plain0 = read_plain_calls()
+            reset_launches()
+            acts, ts, lat = self._replay(dtype, cfg, accel, tol, reads=reads, made=made)
+            n = read_launches()
+            self.path_launches[f"tick graph, {what}"] = n
+            same = bool(np.array_equal(acts, acts_e) and np.array_equal(ts, ts_e))
+            da, dt_ = np.abs(acts - z["actions"]).max(), np.abs(ts - z["tra_times"]).max()
+            ms, ms_e = lat * 1e3, lat_e * 1e3
+            ctrl = made[0]
+            log(f"flight loop tick {what}: graph equal to the eager tick on the card {same}; against the contract "
+                f"wrench {da:.3e} t {dt_:.3e}; host reads a tick {sorted(set(reads))}; per-tick ms graph p50 "
+                f"{np.percentile(ms, 50):.3f} p90 {np.percentile(ms, 90):.3f}, eager p50 {np.percentile(ms_e, 50):.3f} "
+                f"p90 {np.percentile(ms_e, 90):.3f} (host clock, each tick ending in its fetch; the first pass of "
+                f"each controller); capture {ctrl.captures.count} in {ctrl.captures.seconds:.3f} s, pool "
+                f"{ctrl.captures.pool_bytes()} B (the conditional bodies' pool {graphs.body_pool_bytes()} B, shared); "
+                f"launches K1 {n['K1']} K2 {n['K2']} [{self.smi}]")
+            self.check(same, f"phase 19 tick {what}: the graph differs from the eager tick")
+            self.check(set(reads) == {1}, f"phase 19 tick {what}: host reads a tick {sorted(set(reads))}")
+            self.check(min(n["K1"], n["K2"]) > 0 and read_plain_calls() == plain0,
+                       f"phase 19 tick {what}: launches {n}, plain calls moved")
+            if dtype == torch.float64:
+                self.check(da <= 1e-4 and dt_ < 1e-6, f"phase 19 tick replay contract: wrench {da:.3e}, t {dt_:.3e}")
+        # the deployed tick at its steady state: a warm-up pass, then a timed one
+        made = []
+        self._replay(torch.float32, d_cfg, "secant", tol, made=made)
+        reads = []
+        _, _, lat = self._replay(torch.float32, d_cfg, "secant", tol, reads=reads)
+        ms = lat * 1e3
+        log(f"flight loop tick deployed (PYBULLET, H=50, max_iters=30, secant, f32), second pass: p50 "
+            f"{np.percentile(ms, 50):.3f} ms p90 {np.percentile(ms, 90):.3f} ms, host reads a tick "
+            f"{sorted(set(reads))} [{self.smi}]")
+
+    def _flight_loop_flights(self):
+        """(c) the step graphs against the host step loop on the card (each
+        fixed point and solve replaying its own graph): seed
+        2024's 128 x 500 flight and its Kalman-filter run, every
+        ClosedLoopLog field equal, each flight's wall time (graphs, then the
+        step loop), host reads, launches, captures.  The busy share of a
+        graph flight is scripts/profile_solve_tick.py's (--path closed_loop,
+        a process of its own): on an H100 with torch 2.11 a torch.profiler
+        session over a graph with conditional nodes captured after an
+        earlier session of the same process (phase 18 has several) ends the
+        process with a segmentation fault."""
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config
+        from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+        from learningagileflight_se3_torch.utils import graphs
+        from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+        scen, noise = bench_scenarios(bench_scenarios_path(2024))
+        scen = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
+        for what, kw in (("seed 2024", {}), ("seed 2024, Kalman filter", dict(estimate_gate_motion=True,
+                                                                                gate_obs_noise=0.01))):
+            sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=500, device="cuda", **kw)
+            logs, walls, reads = {}, {}, 0
+            for drive in ("graph", "step loop"):
+                gen = torch.Generator(device="cuda").manual_seed(2024)
+                plain0 = read_plain_calls()
+                reset_launches()
+                torch.cuda.synchronize()
+                n = graphs.host_reads
+                t0 = time.perf_counter()
+                logs[drive] = sim(scen, generator=gen, gate_noise=noise, drive=None if drive == "graph" else "eager")
+                if drive == "graph":
+                    reads = graphs.host_reads - n
+                torch.cuda.synchronize()
+                walls[drive] = time.perf_counter() - t0
+                launches = read_launches()
+                if drive == "graph":
+                    self.path_launches[f"flight graph, {what}"] = n_g = launches
+                    self.check(read_plain_calls() == plain0, f"phase 19 flight {what} moved a plain-version counter")
+            unequal = [f for f, a, b in zip(logs["graph"]._fields, logs["graph"], logs["step loop"])
+                       if not torch.equal(a, b)]
+            it = logs["graph"].solver_iters
+            log(f"flight loop flight {what} (128 x 500, f32, H=50, max_iters=45): step graphs equal to the host step "
+                f"loop in every field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
+                f"wall graph {walls['graph']:.3f} s (its first flight: the two captures included), step loop "
+                f"{walls['step loop']:.3f} s (host clock, synced); host reads inside the graph flight {reads}; replans "
+                f"{int((it > 0).sum())}, DDP iterations {int(it.sum())}; launches K1 {n_g['K1']} K2 {n_g['K2']} (the "
+                f"device ledger settled after the flight); captures {sim.captures.count} in {sim.captures.seconds:.3f} s, "
+                f"pool {sim.captures.pool_bytes()} B [{self.smi}]")
+            self.check(not unequal, f"phase 19 flight {what}: graph and step-loop logs differ in {unequal}")
+            self.check(reads == 0, f"phase 19 flight {what}: {reads} host reads inside the flight")
+            self.check(min(n_g["K1"], n_g["K2"]) > 0, f"phase 19 flight {what}: launches {n_g}")
+            if not kw:  # the captured flight again: its time without the captures
+                gen = torch.Generator(device="cuda").manual_seed(2024)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim(scen, generator=gen, gate_noise=noise)
+                torch.cuda.synchronize()
+                log(f"flight loop flight {what}: second graph flight {time.perf_counter() - t0:.3f} s (host clock, "
+                    f"synced) [{self.smi}]")
+
+    def _flight_loop_run_chain(self):
+        """(d) the solve as a chain of conditional blocks in a graph of its own
+        against run_graph's replays with a flag read a block: the bench point
+        (B=2048, f32) and B=1 (the tick's config), equal fields, times in turns."""
+        from learningagileflight_se3_torch.benchmarks.problems import bench_args, scenarios
+        from learningagileflight_se3_torch.benchmarks.solve import bench_config
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
+        from learningagileflight_se3_torch.ops.inputs import bench_problems
+        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        from learningagileflight_se3_torch.utils import graphs
+
+        z = self.contract
+        d_cfg = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
+                             ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
+        cases = [("bench point", bench_config(50), bench_args(scenarios(100, 2048), "cuda")),
+                 ("B=1, the deployed tick's config", d_cfg, bench_problems(1, "cuda", seed=3, dtype=torch.float32))]
+        for what, cfg, args in cases:
+            solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)
+            static = [a.clone() for a in args]
+            chain = graphs.Captures()
+            with torch.no_grad():
+                g = chain.capture(lambda: solver(*static, drive="chain"), warmup=lambda: solver(*static, drive="blocks"))
+                graph_sol = solver(*args)
+            times = {"graph": [], "chain": []}
+            for kind in ("graph", "chain", "chain", "graph", "graph", "chain"):
+                torch.cuda.synchronize()
+                n = graphs.host_reads
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    if kind == "graph":
+                        sol = solver(*args)
+                    else:
+                        for dst, src in zip(static, args):
+                            dst.copy_(src)
+                        g.replay()
+                        sol = g.out
+                torch.cuda.synchronize()
+                times[kind].append(((time.perf_counter() - t0) * 1e3, graphs.host_reads - n))
+            unequal = [f for f, a, b in zip(graph_sol._fields, graph_sol, g.out) if not torch.equal(a, b)]
+            best = {k: min(t for t, _ in v) for k, v in times.items()}
+            log(f"flight loop run_chain {what} (B={args[0].shape[0]}, f32, max_iters={cfg.max_iters}): chain equal to "
+                f"run_graph in every field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
+                f"best of 3 (host clock, synced) run_graph {best['graph']:.3f} ms with "
+                f"{times['graph'][0][1]} host reads, chain {best['chain']:.3f} ms with {times['chain'][0][1]} "
+                f"(all graph {[round(t, 3) for t, _ in times['graph']]}, chain {[round(t, 3) for t, _ in times['chain']]}); "
+                f"iterations max {int(graph_sol.iterations.max())}; chain capture {chain.seconds:.3f} s, pool "
+                f"{chain.pool_bytes()} B [{self.smi}]")
+            self.check(not unequal, f"phase 19 run_chain {what}: differs from run_graph in {unequal}")
+            self.check(times["chain"][0][1] == 0, f"phase 19 run_chain {what}: host reads")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run", file=sys.stderr)
         return 2
+    faulthandler.enable()  # a crash in native code prints the Python stack
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import learningagileflight_se3_torch  # noqa: F401  (fails outside the repo)
@@ -2199,7 +2521,10 @@ def drive(s, only):
               ("9 closed loop, the kernel path against the plain path", s.closed_loop_paths),
               ("15 oracle, the card's f64 solve against the lifted oracle", s.accuracy),
               ("15 oracle, the native plant against the card's", s.native_plant),
-              ("16 benchmarks", s.benchmarks), ("17 entry", s.entry), ("18 graph", s.graph)]
+              ("16 benchmarks", s.benchmarks), ("17 entry", s.entry),
+              # before phase 18: after its torch.profiler sessions phase 19's ticks ran 2 to 2.5
+              # times slower on the host, and see _flight_loop_flights
+              ("19 flight loop", s.flight_loop), ("18 graph", s.graph)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)

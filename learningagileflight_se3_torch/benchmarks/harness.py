@@ -55,9 +55,13 @@ def synchronizer(device):
 
 
 def kernel_counts() -> dict:
-    """The kernel wrappers' counters now: K1 and K2 launches and their plain
+    """The kernel wrappers' counters now: K1 and K2 launches (those that
+    conditional graph bodies made on the card settled first) and their plain
     versions' calls (a bench reports its parts' differences)."""
     from learningagileflight_se3_torch.ops import riccati_fused, rollout
+    from learningagileflight_se3_torch.utils import graphs
+
+    graphs.settle()
 
     return {"K1": rollout.launches, "K2": riccati_fused.launches,
             "K1_plain": rollout.plain_calls, "K2_plain": riccati_fused.plain_calls}

@@ -18,6 +18,7 @@ import torch
 
 from learningagileflight_se3_torch.config import QuadParams
 from learningagileflight_se3_torch.core.rotations import omega_matrix, quat_to_dcm_w2b
+from learningagileflight_se3_torch.utils.device import constant
 
 
 def quad_ode(x, u, params: QuadParams):
@@ -34,7 +35,7 @@ def quad_ode(x, u, params: QuadParams):
 
     dq = 0.5 * (omega_matrix(w) @ q[..., None])[..., 0]
 
-    J = torch.tensor([params.Jx, params.Jy, params.Jz], dtype=x.dtype, device=x.device)
+    J = constant((params.Jx, params.Jy, params.Jz), x.dtype, x.device)
     M = torch.stack(
         [
             (-u[..., 1] + u[..., 3]) * (params.l / 2.0),
@@ -85,18 +86,13 @@ def rollout(x0, U, dt, params: QuadParams, method: str = "euler"):
 
 
 def mixer_matrix(params: QuadParams, dtype=torch.float64, device=None):
-    """Rotor thrusts -> [total thrust, Mx, My, Mz], (4, 4)."""
+    """Rotor thrusts -> [total thrust, Mx, My, Mz], (4, 4); shared (made once
+    per dtype and device by utils/device.py `constant`): read it, never
+    write it."""
     l2 = params.l / 2.0
     c = params.c
-    return torch.tensor(
-        [
-            [1.0, 1.0, 1.0, 1.0],
-            [0.0, -l2, 0.0, l2],
-            [-l2, 0.0, l2, 0.0],
-            [c, -c, c, -c],
-        ],
-        dtype=dtype, device=device,
-    )
+    return constant(((1.0, 1.0, 1.0, 1.0), (0.0, -l2, 0.0, l2), (-l2, 0.0, l2, 0.0), (c, -c, c, -c)),
+                    dtype, torch.device("cpu") if device is None else torch.device(device))
 
 
 def thrust_torque(u, params: QuadParams):

@@ -31,6 +31,7 @@ from learningagileflight_se3_torch.config import CostWeights, QuadParams, Solver
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
+GRAPH_IF_SOURCE = os.path.join(PKG_DIR, "utils", "graph_if.cu")
 # f32 division and square root in their fast forms (within 2 ulp): the IEEE
 # forms lengthen the chain of dependent work in every step of the backward
 # sweep by a third.  f64 is untouched.
@@ -100,17 +101,17 @@ def _sources():
     return [os.path.join(CSRC_DIR, n) for n in names]
 
 
-@functools.cache
-def library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; raises if nvcc fails."""
-    srcs = _sources()
+def _build(srcs, stem: str):
+    """(ctypes library, path, build seconds, ptxas log) of `srcs` built by
+    nvcc into BUILD_DIR, keyed on a hash of the sources and flags (0.0
+    seconds when an up-to-date build was found); raises if nvcc fails."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     tag = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"liblaf_kernels_{tag}.so")
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
     log_path = so[:-3] + ".log"
     seconds = 0.0
     if not os.path.exists(so):
@@ -129,7 +130,13 @@ def library() -> KernelLibrary:
         seconds = time.perf_counter() - t0
     with open(log_path) as f:
         ptxas_log = f.read()
-    lib = ctypes.CDLL(so)
+    return ctypes.CDLL(so), so, seconds, ptxas_log
+
+
+@functools.cache
+def library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; raises if nvcc fails."""
+    lib, so, seconds, ptxas_log = _build(_sources(), "laf_kernels")
     for name, n_ptr in _ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(KernelConsts), _i, _i] + [_p] * n_ptr + [_p]
@@ -137,6 +144,18 @@ def library() -> KernelLibrary:
     for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes"):
         getattr(lib, name).argtypes = [_i]
         getattr(lib, name).restype = _i
+    return KernelLibrary(lib, so, seconds, ptxas_log)
+
+
+@functools.cache
+def graph_library() -> KernelLibrary:
+    """Build (if needed) and load utils/graph_if.cu, the CUDA-graph
+    conditional nodes of utils/graphs.py (no kernel of the port's own)."""
+    lib, so, seconds, ptxas_log = _build([GRAPH_IF_SOURCE], "laf_graph_if")
+    lib.laf_if_begin.argtypes = [_p, _p, _p]
+    lib.laf_if_begin.restype = _i
+    lib.laf_if_end.argtypes = [_p]
+    lib.laf_if_end.restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)
 
 

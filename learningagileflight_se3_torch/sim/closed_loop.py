@@ -1,8 +1,9 @@
 """Closed-loop flight through a moving gate, all scenarios at once.
 
 Port of `learningagileflight_se3_tpu/sim/closed_loop.py`.  The JAX version
-is one `lax.scan` per scenario under `vmap`; here one Python loop over the
-plant steps carries every scenario as a lane of one batch:
+is one `lax.scan` per scenario under `vmap`, its replan a `lax.cond`; here
+every scenario is a lane of one batch, and one step function serves every
+drive:
 
   100 Hz plant (Euler dt=0.01, renormalised quaternion by default)
   100 Hz traversal-time fixed point (sim/tsolver.py, batched)
@@ -10,10 +11,18 @@ plant steps carries every scenario as a lane of one batch:
         input, DNN2, and one batched window-frame MPC solve (the kernels on
         the card), warm-started from the time-shifted previous plan
 
-The state, the controls, the warm start and the log stay on the device; the
-log is preallocated and written row by row, and nothing is fetched inside
-the loop except the loop tests of the t-solver and the solver; on the card
-the t-solver replays each DNN2 evaluation as one CUDA graph.  A lane
+On the card the step is two CUDA graphs per batch size and observation
+noise, captured at the first flight: the hold step and the replan step
+(the `lax.cond`), each with its fixed point and its solve as chains of
+conditional blocks (utils/graphs.py), over one set of static buffers: the
+carry (state, control, warm start, DNN2's output, the Kalman state), the
+step's inputs and its outputs.  The host loop copies a step's gate row,
+velocity and observation noise into the inputs, replays the graph the step
+names and copies the outputs into the preallocated logs, all queued on the
+card: nothing inside a flight waits for it, and the caller's read of the log
+is the one sync.  On the CPU, and on the card under solver/watch.py's
+watchers, the same step runs in a host loop over the steps, the loop tests
+of its fixed points and solves host reads.  A lane
 whose state stops being finite stays a lane: its rows go NaN, the solver
 retires it by its regularisation blow-out, and no other lane reads it.
 """
@@ -46,6 +55,7 @@ from learningagileflight_se3_torch.geometry.gate import (
 )
 from learningagileflight_se3_torch.models.sampler import scenario_to_problem
 from learningagileflight_se3_torch.sim.estimator import (
+    KalmanState,
     estimated_velocity,
     gate_observation,
     kalman_init,
@@ -53,7 +63,40 @@ from learningagileflight_se3_torch.sim.estimator import (
 )
 from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3_torch.utils import graphs
 from learningagileflight_se3_torch.utils.device import resolve_device
+
+
+class _Carry(NamedTuple):
+    """What one plant step hands the next, per lane."""
+
+    state: torch.Tensor  # (B, 13)
+    u: torch.Tensor      # (B, 4) the control held until the next replan
+    U_warm: torch.Tensor  # (B, H, 4) the next replan's warm start
+    out: torch.Tensor    # (B, 7) DNN2's output at the last replan
+    kx: torch.Tensor     # (B, 8) the Kalman filter's mean
+    kP: torch.Tensor     # (B, 8, 8) and covariance
+
+
+class _Inputs(NamedTuple):
+    """A step's inputs: the gate corners, the true gate velocity and the
+    observation noise (zeros without one) of the step, and the flight's
+    goal and true pitch rate."""
+
+    pts: torch.Tensor    # (B, 4, 3)
+    vel: torch.Tensor    # (B, 3)
+    noise: torch.Tensor  # (B, 4, 3)
+    final: torch.Tensor  # (B, 3)
+    w: torch.Tensor      # (B,)
+
+
+class _Outputs(NamedTuple):
+    """A step's log rows besides the carry's."""
+
+    t: torch.Tensor         # (B,)
+    vel_used: torch.Tensor  # (B, 4)
+    torques: torch.Tensor   # (B, 4)
+    iters: torch.Tensor     # (B,) int32, the replan's iterations (0 on a hold step)
 
 
 class ClosedLoopLog(NamedTuple):
@@ -91,10 +134,17 @@ def make_closed_loop_sim(
     device="cuda",
     dtype=torch.float32,
 ):
-    """sim(scenarios (B, 9), generator=None, gate_noise=None, obs_noise=None)
-    -> ClosedLoopLog, on `device` (the card by default, which raises where
-    there is none; `device="cpu"` for the CPU) in `dtype`, with a copy of
-    `model2` (DNN2) moved there.
+    """sim(scenarios (B, 9), generator=None, gate_noise=None, obs_noise=None,
+    drive=None) -> ClosedLoopLog, on `device` (the card by default, which
+    raises where there is none; `device="cpu"` for the CPU) in `dtype`, with
+    a copy of `model2` (DNN2) moved there.  `drive` None takes the step
+    graphs on the card (the module's docstring) and the host step loop on
+    the CPU and under the watchers; "eager" names the host step loop, each
+    fixed point and solve on its own drive (their eager loops on the CPU,
+    the solves' under the watchers too; their own graphs on the card), and
+    "blocks" the step graphs' code run in place of their replays, every
+    conditional block run (the CPU's check of what the graphs capture).
+    `sim.captures` holds the step graphs' captures.
 
     A scenario is the 9-dim vector (start, goal, yaw, gate width, gate pitch).
     The gate's velocity noise is `gate_noise` (B, steps, 3), already clipped,
@@ -124,10 +174,71 @@ def make_closed_loop_sim(
     H = solver_cfg.horizon
     w_rot = motion_cfg.omega_y
     step_plant = euler_step_renorm if renorm_plant else euler_step
+    u_mid = 0.5 * (solver_cfg.u_lb + solver_cfg.u_ub)
+    captures = graphs.Captures()
+    step_graphs = {}  # (B, with observation noise) -> (static carry, inputs, outputs, {replan: replay})
+
+    def step(c: _Carry, x: _Inputs, replan: bool, noisy: bool, drive):
+        """One plant step (with a replan or not): the next carry and the
+        step's outputs."""
+        kx, kP = c.kx, c.kP
+        if estimate_gate_motion:
+            ks = kstep(KalmanState(kx, kP), gate_observation(x.pts, noise=x.noise if noisy else None))
+            kx, kP = ks
+            vel, w_use = estimated_velocity(ks)
+        else:
+            vel, w_use = x.vel, x.w
+        t = tsolve(c.state, x.final, x.pts, vel, w_use, drive=drive)
+        u, U_warm, out = c.u, c.U_warm, c.out
+        iters = torch.zeros_like(c.state[:, 0], dtype=torch.int32)
+        if replan:
+            # the gate pose predicted t ahead, then the window-frame MPC
+            pts_f = rotate_y(translate(x.pts, t[:, None] * vel), t * w_use)
+            inp = window_inputs(pts_f, c.state, x.final)
+            out = model2(inp)
+            sol = solve(inp[:, 0:13], u, inp[:, 13:16], out[:, 0:3], out[:, 3:6], out[:, 6],
+                        U_init=U_warm if warm_start else None, drive=drive)
+            U = sol.control_traj.to(dtype)
+            u = U[:, 0]
+            # the time-shifted remainder of this plan, its last control held
+            U_warm = torch.cat([U[:, warm_shift:], U[:, -1:].expand(-1, warm_shift, 4)], dim=1)
+            iters = sol.iterations
+        state = step_plant(c.state, u, plant_dt, params_q)
+        vel_used = torch.cat([vel, w_use[:, None]], dim=-1)
+        return (_Carry(state, u, U_warm, out, kx, kP),
+                _Outputs(t, vel_used, thrust_torque(u, params_q), iters))
+
+    def buffers(c0: _Carry, x0: _Inputs, noisy: bool):
+        """Static buffers for the carry, the inputs and the outputs (copies
+        of c0 and x0), and run(replan, drive): one step from them into them,
+        what a step graph captures."""
+        c = _Carry(*(a.clone() for a in c0))
+        x = _Inputs(*(a.clone() for a in x0))
+        o = _Outputs(torch.zeros_like(x.w), torch.zeros_like(c.u), torch.zeros_like(c.u),
+                     torch.zeros_like(x.w, dtype=torch.int32))
+
+        def run(replan, drive):
+            nc, no = step(c, x, replan, noisy, drive)
+            for dst, src in zip((*c, *o), (*nc, *no)):
+                dst.copy_(src)
+
+        return c, x, o, run
+
+    def step_graphs_for(c0: _Carry, x0: _Inputs, noisy: bool):
+        """The static buffers and {replan: replay} of the hold and replan
+        graphs for this batch size and noise, captured at the first flight
+        (each warm-up runs every block on a copy of the carry)."""
+        key = (c0.state.shape[0], noisy)
+        if key not in step_graphs:
+            c, x, o, run = buffers(c0, x0, noisy)
+            warm = lambda r: lambda: step(_Carry(*(a.clone() for a in c)), x, r, noisy, "blocks")  # noqa: E731
+            step_graphs[key] = c, x, o, {r: captures.capture(lambda r=r: run(r, "chain"), warmup=warm(r)).replay
+                                         for r in (False, True)}
+        return step_graphs[key]
 
     @torch.no_grad()
     def sim(scenarios, generator: Optional[torch.Generator] = None, gate_noise=None,
-            obs_noise=None):
+            obs_noise=None, drive=None):
         kw = dict(dtype=dtype, device=device)
         on_device = lambda a: None if a is None else torch.as_tensor(a).to(**kw)
         scen = on_device(scenarios)
@@ -141,13 +252,14 @@ def make_closed_loop_sim(
         if estimate_gate_motion and obs_noise is None and generator is not None and gate_obs_noise > 0.0:
             obs_noise = gate_obs_noise * torch.randn(
                 (B, steps, 4, 3), generator=generator, dtype=dtype, device=generator.device).to(device)
+        noisy = estimate_gate_motion and obs_noise is not None
 
-        state = prob["x0"]
-        u = torch.zeros((B, 4), **kw)
-        U_warm = torch.full((B, H, 4), 0.5 * (solver_cfg.u_lb + solver_cfg.u_ub), **kw)
-        out = torch.zeros((B, 7), **kw)
         ks = kalman_init(gate_observation(moves[:, 0]), dtype=dtype)
-        w_true = torch.full((B,), w_rot, **kw)
+        c = _Carry(prob["x0"], torch.zeros((B, 4), **kw), torch.full((B, H, 4), u_mid, **kw),
+                   torch.zeros((B, 7), **kw), ks.x, ks.P)
+        zeros3 = torch.zeros((B, 4, 3), **kw)
+        x = _Inputs(moves[:, 0], V[:, 0], obs_noise[:, 0] if noisy else zeros3, final,
+                    torch.full((B,), w_rot, **kw))
 
         # time-major logs, written in place; row 0 of the first four is the start
         states = torch.zeros((steps + 1, B, 13), **kw)
@@ -157,34 +269,36 @@ def make_closed_loop_sim(
         tra_times = torch.zeros((steps, B), **kw)
         iters = torch.zeros((steps, B), dtype=torch.int32, device=device)
         vel_used = torch.zeros((steps, B, 4), **kw)
-        states[0] = state
+        states[0] = c.state
 
+        drive = drive or graphs.drive(device)
+        if drive == "graph" and not solve.graphed(device):
+            drive = "eager"
+        static = drive in ("graph", "blocks")
+        if drive == "graph":
+            c_s, x_s, o, go = step_graphs_for(c, x, noisy)
+        elif drive == "blocks":  # the graphs' code, run in place of the replays
+            c_s, x_s, o, run = buffers(c, x, noisy)
+            go = {r: (lambda r=r: run(r, "blocks")) for r in (False, True)}
+        if static:
+            for dst, src in zip((*c_s, x_s.final, x_s.w), (*c, x.final, x.w)):
+                dst.copy_(src)
         for i in range(steps):
-            pts = moves[:, i]
-            if estimate_gate_motion:
-                obs = gate_observation(pts, noise=None if obs_noise is None else obs_noise[:, i])
-                ks = kstep(ks, obs)
-                vel, w_use = estimated_velocity(ks)
+            replan = i % control_every == 0
+            if static:
+                x_s.pts.copy_(moves[:, i])
+                x_s.vel.copy_(V[:, i])
+                if noisy:
+                    x_s.noise.copy_(obs_noise[:, i])
+                go[replan]()
+                c = c_s
             else:
-                vel, w_use = V[:, i], w_true
-            t = tsolve(state, final, pts, vel, w_use)
-            if i % control_every == 0:
-                # the gate pose predicted t ahead, then the window-frame MPC
-                pts_f = rotate_y(translate(pts, t[:, None] * vel), t * w_use)
-                inp = window_inputs(pts_f, state, final)
-                out = model2(inp)
-                sol = solve(inp[:, 0:13], u, inp[:, 13:16], out[:, 0:3], out[:, 3:6], out[:, 6],
-                            U_init=U_warm if warm_start else None)
-                U = sol.control_traj.to(dtype)
-                u = U[:, 0]
-                # the time-shifted remainder of this plan, its last control held
-                U_warm = torch.cat([U[:, warm_shift:], U[:, -1:].expand(B, warm_shift, 4)], dim=1)
-                iters[i] = sol.iterations
-            state = step_plant(state, u, plant_dt, params_q)
-            states[i + 1], controls[i + 1], hl[i + 1] = state, u, out
-            torques[i + 1] = thrust_torque(u, params_q)
-            tra_times[i] = t
-            vel_used[i, :, 0:3], vel_used[i, :, 3] = vel, w_use
+                x = x._replace(pts=moves[:, i], vel=V[:, i], noise=obs_noise[:, i] if noisy else zeros3)
+                c, o = step(c, x, replan, noisy, None)
+            states[i + 1], controls[i + 1], hl[i + 1], torques[i + 1] = c.state, c.u, c.out, o.torques
+            tra_times[i], vel_used[i] = o.t, o.vel_used
+            if replan:
+                iters[i] = o.iters
 
         times = torch.arange(steps, **kw) * plant_dt
         lanes_first = lambda a: a.transpose(0, 1).contiguous()
@@ -203,6 +317,7 @@ def make_closed_loop_sim(
             gate_vel_used=lanes_first(vel_used),
         )
 
+    sim.captures = captures
     return sim
 
 

@@ -11,6 +11,11 @@ with white acceleration noise and the standard discrete constant-velocity
 process covariance.  The pitch measurement is an atan and wraps with period
 pi; the innovation is wrapped with the sign rule of Python's `%`
 (`torch.remainder`) so that the filter follows a gate that keeps turning.
+The Kalman gain solves the 4x4 innovation covariance (SPD) by the closed-form
+Cholesky of solver/chol4.py on every device: the batched LU of
+`torch.linalg.solve` checks its pivots on the host, which a CUDA graph
+cannot capture, and one formula everywhere keeps the eager and the graphed
+flights equal bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from learningagileflight_se3_torch.geometry.gate import gate_centroid, gate_pitch
+from learningagileflight_se3_torch.solver.chol4 import chol4_solve
 
 NS = 8  # [cx cy cz vx vy vz pitch pitch_rate]
 NO = 4  # [cx cy cz pitch]
@@ -46,8 +52,8 @@ def kalman_init(obs0, pos_var: float = 1.0, vel_var: float = 4.0,
 
 def _model_matrices(dt: float, q_accel: float, r_meas: float, dtype, device):
     """Constant-velocity F, process noise Q ([[dt^4/4, dt^3/2], [dt^3/2,
-    dt^2]] * q_accel per (position, velocity) pair), observation Hm, and
-    measurement noise R."""
+    dt^2]] * q_accel per (position, velocity) pair), observation Hm,
+    measurement noise R and the identity."""
     F = torch.eye(NS, dtype=dtype)
     Q = torch.zeros((NS, NS), dtype=dtype)
     q11, q12, q22 = q_accel * dt**4 / 4.0, q_accel * dt**3 / 2.0, q_accel * dt**2
@@ -58,7 +64,7 @@ def _model_matrices(dt: float, q_accel: float, r_meas: float, dtype, device):
     for o, s in ((0, 0), (1, 1), (2, 2), (3, 6)):
         Hm[o, s] = 1.0
     R = r_meas * torch.eye(NO, dtype=dtype)
-    return tuple(m.to(device) for m in (F, Q, Hm, R))
+    return tuple(m.to(device) for m in (F, Q, Hm, R, torch.eye(NS, dtype=dtype)))
 
 
 def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e-4,
@@ -72,7 +78,7 @@ def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e
         key = (ks.x.dtype, ks.x.device)
         if key not in cache:
             cache[key] = _model_matrices(dt, q_accel, r_meas, *key)
-        F, Q, Hm, R = cache[key]
+        F, Q, Hm, R, I = cache[key]
         # predict
         xp = ks.x @ F.T
         Pp = F @ ks.P @ F.T + Q
@@ -82,9 +88,11 @@ def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e
         pitch = torch.remainder(innov[..., 3] + half, pitch_period) - half
         innov = torch.cat([innov[..., 0:3], pitch[..., None]], dim=-1)
         S = Hm @ Pp @ Hm.T + R
-        K = torch.linalg.solve(S, Hm @ Pp).transpose(-1, -2)  # (..., 8, 4)
+        # K^T = S^-1 (Hm Pp), in chol4's layout (matrix axes first)
+        KT, _ = chol4_solve(S.movedim((-2, -1), (0, 1)), (Hm @ Pp).movedim((-2, -1), (0, 1)))
+        K = KT.movedim((0, 1), (-1, -2))  # (..., 8, 4)
         xn = xp + (K @ innov[..., None])[..., 0]
-        IKH = torch.eye(NS, dtype=xp.dtype, device=xp.device) - K @ Hm
+        IKH = I - K @ Hm
         Pn = IKH @ Pp @ IKH.transpose(-1, -2) + K @ R @ K.transpose(-1, -2)
         return KalmanState(x=xn, P=0.5 * (Pn + Pn.transpose(-1, -2)))
 

@@ -11,11 +11,17 @@ control stack a PyBullet-style host calls once per 10 Hz tick with
   5. mixing to [thrust, tau_x, tau_y, tau_z].
 
 Steps 2-5 run on `device`.  The warm-start trajectory and the previous
-control stay there between ticks, the mixing happens there, and the tick
-uploads one 28-value observation and fetches one 9-value packet.  The
-query is solved as a batch of one (the JAX tile of 128 or 8 rows is a TPU
-layout fix the kernels do not need).  The fixed point's and the solver's
-loop tests are host syncs.
+control stay there between ticks, in buffers the tick writes in place, the
+mixing happens there, and the tick uploads one 28-value observation and
+fetches one 9-value packet.  The query is solved as a batch of one (the JAX
+tile of 128 or 8 rows is a TPU layout fix the kernels do not need).
+
+On the card steps 2-5 are one CUDA graph, captured at construction: the
+fixed point's and the solve's loops are chains of conditional blocks
+(utils/graphs.py), so a tick is one copy of the observation from pinned
+memory, one replay and the packet's fetch, its only host read.  On the
+CPU, and on the card under solver/watch.py's watchers, the same step runs
+eagerly, its loop tests host reads.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from learningagileflight_se3_torch.config import (
 from learningagileflight_se3_torch.geometry.gate import rotate_y, translate, window_inputs
 from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3_torch.utils import graphs
 from learningagileflight_se3_torch.utils.device import resolve_device
 
 # sign matrix A: maps rotor thrusts to the [T, tau] convention together
@@ -79,6 +86,9 @@ class ExternalSimController:
       origin: scenario origin subtracted from raw positions.
       device, dtype: where and in what precision steps 2-5 run; the card by
         default (raises where there is none), `device="cpu"` for the CPU.
+
+    `solution` is the last tick's MPCSolution, on the device; on the card
+    its tensors are the tick graph's buffers, valid until the next tick.
     """
 
     def __init__(
@@ -116,37 +126,62 @@ class ExternalSimController:
         self._final = torch.as_tensor(np.asarray(final_point, dtype=np.float64), **kw)
         self._tsolve = make_traversal_time_solver(self.model2, tol=fixed_point_tol,
                                                   accel=fixed_point_accel)
-        # the t-solver's CUDA graph is captured here, not in the first tick
-        self._tsolve.prepare(torch.zeros(13, **kw), self._final, torch.zeros((4, 3), **kw),
-                             torch.zeros(3, **kw), self.w_rot)
         self._solve = make_batched_mpc_solver(self.params, self.weights, self.solver_cfg)
-        # and the solve's CUDA graph (solver/ilqr_batched.py), a batch of one
-        self._solve.prepare(1, dtype, self.device)
         H = self.solver_cfg.horizon
-        # device-resident tick carry: previous control and warm-start U
+        # device-resident tick carry, written in place by each tick: the
+        # previous control and the warm-start U (the hover guess until a
+        # warm-started tick has run)
         self.u = np.zeros(4)
         self._u_dev = torch.zeros(4, **kw)
-        self._hover_U = torch.full((H, 4), 0.5 * (self.solver_cfg.u_lb + self.solver_cfg.u_ub), **kw)
-        self._U_dev = None
+        self._U_dev = torch.full((H, 4), 0.5 * (self.solver_cfg.u_lb + self.solver_cfg.u_ub), **kw)
+        self._obs = torch.zeros(28, **kw)
         self.solution = None  # the last tick's MPC solution, on the device
+        self.captures = graphs.Captures()
+        self._graph = None
+        if self._graphed():
+            self._capture()
+
+    def _graphed(self) -> bool:
+        return graphs.drive(self.device) == "graph" and self._solve.graphed(self.device)
+
+    def _capture(self):
+        """The tick's steps 2-5 as one CUDA graph over the carry and
+        observation buffers (the warm-up runs every block on copies).  It is
+        replayed once here, the carry kept: a graph's first launch uploads
+        it to the card, which is no tick's to pay."""
+        self._obs_host = torch.zeros(28, dtype=self.dtype, pin_memory=True)
+        carry = (self._u_dev, self._U_dev)
+        self._graph = self.captures.capture(
+            lambda: self._write(*self._device_step(self._obs, *carry, drive="chain")),
+            warmup=lambda: self._device_step(self._obs, *(c.clone() for c in carry), drive="blocks"))
+        kept = [c.clone() for c in carry]
+        self._graph.replay()
+        for c, k in zip(carry, kept):
+            c.copy_(k)
+
+    def _write(self, packed, u, U, sol):
+        """Write a step's control and plan into the carry; (packed, sol)."""
+        self._u_dev.copy_(u)
+        if self.warm_start:
+            self._U_dev.copy_(U)
+        return packed, sol
 
     @torch.no_grad()
-    def _device_step(self, obs, u_prev, U_warm):
+    def _device_step(self, obs, u_prev, U_warm, drive=None):
         state = obs[0:13]
         gate_pts = obs[13:25].reshape(4, 3)
         velo = obs[25:28]
-        t = self._tsolve(state, self._final, gate_pts, velo, self.w_rot)
+        t = self._tsolve(state, self._final, gate_pts, velo, self.w_rot, drive=drive)
         pts_f = rotate_y(translate(gate_pts, t * velo), t * self.w_rot)
         inp = window_inputs(pts_f, state, self._final)
         out = self.model2(inp)
         sol = self._solve(
             inp[None, 0:13], u_prev[None], inp[None, 13:16],
-            out[None, 0:3], out[None, 3:6], out[None, 6], U_init=U_warm[None],
+            out[None, 0:3], out[None, 3:6], out[None, 6], U_init=U_warm[None], drive=drive,
         )
-        self.solution = sol
         u = sol.control_traj[0, 0]
         packed = torch.cat([self._mix @ u, u, t.reshape(1).to(u.dtype)])
-        return packed, u, sol.control_traj[0]
+        return packed, u, sol.control_traj[0], sol
 
     def compute_control(self, step, cur_pos, cur_quat_xyzw, cur_vel, cur_euler_rates, cur_rpy):
         """One 10 Hz control query. Returns ([T, tau_x, tau_y, tau_z], t)."""
@@ -163,10 +198,16 @@ class ExternalSimController:
             [state, np.asarray(gate_pts, dtype=np.float64).ravel(),
              np.asarray(velo, dtype=np.float64)]
         )
-        U_warm = self._U_dev if (self.warm_start and self._U_dev is not None) else self._hover_U
-        packed, self._u_dev, self._U_dev = self._device_step(
-            torch.as_tensor(obs, dtype=self.dtype, device=self.device), self._u_dev, U_warm
-        )
-        res = packed.cpu().numpy()  # the tick's single result fetch
+        if self._graphed():
+            if self._graph is None:  # made under the watchers
+                self._capture()
+            self._obs_host.copy_(torch.from_numpy(obs))
+            self._obs.copy_(self._obs_host, non_blocking=True)
+            self._graph.replay()
+            packed, self.solution = self._graph.out
+        else:
+            self._obs.copy_(torch.as_tensor(obs, dtype=self.dtype))
+            packed, self.solution = self._write(*self._device_step(self._obs, self._u_dev, self._U_dev))
+        res = graphs.fetch(packed).numpy()  # the tick's single result fetch
         self.u = res[4:8]
         return res[0:4], float(res[8])

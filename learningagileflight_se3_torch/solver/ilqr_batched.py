@@ -37,16 +37,23 @@ search, and every iteration by whether any lane is still live in the solve
 (`go`), so a trip or an iteration run past the loop's exit changes nothing:
 the solver is not idempotent past its exit (a trip would still accept a
 lane at a deeper step, an iteration would rewrite `pg` and `ls_evals`).
-It runs in one of two ways:
+It runs in one of three ways:
 
-  * graph (CUDA tensors): `GRAPH_BLOCK` iterations are captured once per
-    batch size, dtype and device into one CUDA graph (a private memory pool
-    shared by the solver's captures) and the graph is replayed until the
-    done flag, copied to pinned host memory after each block, says that no
-    lane is live or the cap is reached.  Block n+1 is queued before block
-    n's flag is read, so at most one block runs past the exit, as gated
-    no-ops, and a solve makes at most ceil(max_iters / GRAPH_BLOCK) - 1
-    host syncs.  A capture that fails raises: nothing falls back to eager.
+  * graph (a standalone solve on CUDA tensors): `GRAPH_BLOCK` iterations
+    are captured once per batch size, dtype and device into one CUDA graph
+    (a private memory pool shared by the solver's captures) and the graph
+    is replayed until the done flag, copied to pinned host memory after
+    each block, says that no lane is live or the cap is reached.  Block
+    n+1 is queued before block n's flag is read, so at most one block runs
+    past the exit, as gated no-ops, and a solve makes at most
+    ceil(max_iters / GRAPH_BLOCK) - 1 host reads.  A capture that fails
+    raises: nothing falls back to eager.
+  * chain (a solve traced inside an enclosing capture: the tick's, a flight
+    step's): `run_chain`, the setup and ceil(cap / GRAPH_BLOCK) blocks of
+    the same gated iterations, each block under a CUDA-graph conditional
+    IF node whose predicate is `live_any` of the carry before it
+    (utils/graphs.py `while_blocks`), so a block past the exit is skipped
+    on the device and the solve makes no host read.
   * eager: the loops on the host, which stop at a host test (`.any()`) per
     iteration and per trip.  It is the CPU's loop (the gated trips and
     iterations it skips are no-ops).  On the card it runs in two cases
@@ -56,22 +63,19 @@ It runs in one of two ways:
     `torch.linalg.solve_ex` cannot be captured (on an H100 with torch 2.11
     its LU raises cudaErrorStreamCaptureUnsupported inside a capture).
 
-`run_blocks` is the graph loop's schedule without the capture, so the
-CPU tests hold the captured code bit for bit against the eager loop.
+`run_blocks` is the graph loop's schedule without the capture, and
+`run_chain(..., drive="blocks")` the chain's, so the CPU tests hold the
+captured code bit for bit against the eager loop.
 """
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional
 
 import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.core.rotations import rodrigues_to_quat
-from learningagileflight_se3_torch.ops import build
-from learningagileflight_se3_torch.ops import riccati_fused as _k2
-from learningagileflight_se3_torch.ops import rollout as _k1
 from learningagileflight_se3_torch.ops.riccati_fused import riccati_backward
 from learningagileflight_se3_torch.ops.rollout import rollout_forward
 from learningagileflight_se3_torch.solver.analytic import (
@@ -81,6 +85,7 @@ from learningagileflight_se3_torch.solver.analytic import (
 )
 from learningagileflight_se3_torch.solver.ilqr import MPCSolution
 from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, parallel_backward
+from learningagileflight_se3_torch.utils import graphs
 
 NX = 13
 NU = 4
@@ -93,13 +98,6 @@ NZ = NX + NU
 # stops early (the tick: 13 of 30 iterations) under 7 iterations and its
 # syncs at 60 / 4 = 15 at the bench point.
 GRAPH_BLOCK = 4
-
-# Set by solver/watch.py's watchers while they watch: CUDA solves then take
-# the eager loop, whose kernel calls are Python calls the watchers see.
-_eager_on_card = False
-
-host_syncs = 0  # host reads of a device flag by the loops (the solve's syncs)
-
 
 class SolveState(NamedTuple):
     """The DDP loop's carry, in the kernels' layout; per-lane fields are (B,).
@@ -139,12 +137,6 @@ def live_any(s: SolveState) -> torch.Tensor:
     return ((~s.done) & (s.it < s.max_iters)).any()
 
 
-def _read(flag: torch.Tensor) -> bool:
-    global host_syncs
-    host_syncs += 1
-    return bool(flag)
-
-
 def _schedule(n_blocks: int, queue, read) -> None:
     """Queue block 0; then, for each block n, queue block n+1 before reading
     block n's flag, and stop at a flag that says no lane is live.  The last
@@ -159,14 +151,12 @@ def _schedule(n_blocks: int, queue, read) -> None:
 
 
 class _Graph(NamedTuple):
-    graph: torch.cuda.CUDAGraph
+    graph: graphs.Graph    # one block
     state: SolveState      # static buffers: the carry in and out of a block
     problem: Problem       # static buffers: the solve's constants
     flag: torch.Tensor     # () bool, live_any after the block
     pinned: torch.Tensor   # (2,) bool in pinned host memory
     events: tuple
-    k1: int                # K1 / K2 launches of one block
-    k2: int
 
 
 class BatchedSolver:
@@ -176,7 +166,8 @@ class BatchedSolver:
     Any batch size; the solve runs on x0's device, in x0's float dtype
     promoted to at least float32.  On a CUDA device the DDP loop runs as a
     replayed CUDA graph (see the module's docstring; `graphed` says when),
-    captured at the first solve of each batch size and dtype."""
+    captured at the first solve of each batch size and dtype, or, inside an
+    enclosing capture, as a chain of conditional blocks."""
 
     def __init__(self, params: QuadParams, weights: CostWeights, cfg: SolverConfig,
                  return_gains: bool = False):
@@ -198,9 +189,7 @@ class BatchedSolver:
         # the most trips any lane can take in one line search
         self.n_trips = min(n_alpha, max(cfg.ls_max_trips, self.n_deep))
         self._graphs = {}
-        self._pool = None
-        self.captures = 0
-        self.capture_seconds = 0.0
+        self.graph_captures = graphs.Captures()
 
     # ------------------------------------------------------------ kernels
     def rollout(self, Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos, tra_quat):
@@ -267,7 +256,7 @@ class BatchedSolver:
         for _ in range(self.n_trips):
             active = live(accepted, i)
             trip_go = active.any()
-            if sync and not _read(trip_go):
+            if sync and not graphs.read(trip_go):
                 break
             alpha = alphas[torch.clamp_max(depth(i), n_alpha - 1).long()]
             Zn, Un, Jn = self.forward(Z, U, kk, KK, p, alpha)
@@ -441,9 +430,17 @@ class BatchedSolver:
         common signature)."""
         while True:
             go = live_any(s)
-            if not _read(go):
+            if not graphs.read(go):
                 return s
             s = self.iteration(s, p, go, sync=True)
+
+    def run_chain(self, s: SolveState, p: Problem, cap: int, drive: str = "chain") -> SolveState:
+        """The loop as ceil(cap / GRAPH_BLOCK) blocks of gated iterations,
+        each under a conditional IF node of the capture that is open ("chain",
+        the carry `s` written in place), or each run ("blocks", the CPU's
+        check of what the chain captures); no host read either way."""
+        body = lambda st, go: self.iteration(st, p, go)  # noqa: E731
+        return graphs.while_blocks(s, live_any, body, GRAPH_BLOCK, -(-cap // GRAPH_BLOCK), drive)
 
     def run_blocks(self, s: SolveState, p: Problem, cap: int, k: Optional[int] = None) -> SolveState:
         """The graph loop's schedule with the blocks run in place of the
@@ -455,14 +452,15 @@ class BatchedSolver:
             box[0] = self.run_block(box[0], p, k)
             flags.append(live_any(box[0]))
 
-        _schedule(-(-cap // k), queue, lambda n: _read(flags[n]))
+        _schedule(-(-cap // k), queue, lambda n: graphs.read(flags[n]))
         return box[0]
 
     def graphed(self, device) -> bool:
-        """Whether a solve on `device` runs as replays of a CUDA graph: on a
-        CUDA device, with the sequential sweep (K2), outside the watchers."""
+        """Whether a solve on `device` runs as replays of a CUDA graph (or,
+        inside an enclosing capture, as a chain of its blocks): on a CUDA
+        device, with the sequential sweep (K2), outside the watchers."""
         return (torch.device(device).type == "cuda" and self.cfg.backward == "sequential"
-                and not _eager_on_card)
+                and not graphs.eager_on_card)
 
     def prepare(self, B: int, dtype, device) -> None:
         """Capture the graph for batch size B in `dtype` on `device` now,
@@ -497,59 +495,48 @@ class BatchedSolver:
 
         def queue(n):
             g.graph.replay()
-            # the wrappers counted the capture, not the replays
-            _k1.launches += g.k1
-            _k2.launches += g.k2
             g.pinned[n % 2].copy_(g.flag, non_blocking=True)
             g.events[n % 2].record()
 
         def read(n):
             g.events[n % 2].synchronize()
-            return _read(g.pinned[n % 2])
+            return graphs.read(g.pinned[n % 2])
 
         _schedule(-(-cap // GRAPH_BLOCK), queue, read)
         return SolveState(*(t.clone() for t in g.state))
 
     def _capture(self, s: SolveState, p: Problem) -> _Graph:
-        """Capture one block into a CUDA graph on static copies of (s, p),
-        after the kernels' build and a warm-up block on a side stream.  The
-        static state is the block's input and, copied back at its end, its
-        output; the flag is `live_any` of the result."""
-        t0 = time.perf_counter()
-        device = s.J.device
-        build.library()  # nvcc at first use: not inside a capture
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        """Capture one block into a CUDA graph on static copies of (s, p).
+        The static state is the block's input and, copied back at its end,
+        its output; the flag is `live_any` of the result."""
         state = SolveState(*(t.clone() for t in s))
         problem = Problem(*(t.clone() for t in p))
-        flag = torch.zeros((), dtype=torch.bool, device=device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self.run_block(state, problem, GRAPH_BLOCK)  # warm-up; its result is dropped
-        torch.cuda.current_stream(device).wait_stream(side)
-        n1, n2 = _k1.launches, _k2.launches
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        flag = torch.zeros((), dtype=torch.bool, device=s.J.device)
+
+        def block():
             out = self.run_block(state, problem, GRAPH_BLOCK)
             for dst, src in zip(state, out):
                 dst.copy_(src)
             flag.copy_(live_any(state))
-        k1, k2 = _k1.launches - n1, _k2.launches - n2
-        _k1.launches, _k2.launches = n1, n2  # a capture launches nothing
+
+        # the warm-up block's result is dropped
+        graph = self.graph_captures.capture(block, warmup=lambda: self.run_block(state, problem, GRAPH_BLOCK))
         pinned = torch.zeros(2, dtype=torch.bool, pin_memory=True)
         events = (torch.cuda.Event(), torch.cuda.Event())
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
-        return _Graph(graph, state, problem, flag, pinned, events, k1, k2)
+        return _Graph(graph, state, problem, flag, pinned, events)
+
+    @property
+    def captures(self) -> int:
+        return self.graph_captures.count
+
+    @property
+    def capture_seconds(self) -> float:
+        return self.graph_captures.seconds
 
     def pool_bytes(self) -> int:
         """Bytes the allocator holds in the solver's graph pool (0 before
         the first capture)."""
-        if self._pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
+        return self.graph_captures.pool_bytes()
 
     def solution(self, s: SolveState) -> MPCSolution:
         dtype, device = s.J.dtype, s.J.device
@@ -568,13 +555,22 @@ class BatchedSolver:
         )
 
     def __call__(self, x0, u_last, goal_pos, tra_pos, tra_ang, t,
-                 U_init: Optional[torch.Tensor] = None, max_iters: Optional[int] = None) -> MPCSolution:
-        """max_iters: optional runtime iteration cap (default cfg.max_iters)."""
+                 U_init: Optional[torch.Tensor] = None, max_iters: Optional[int] = None,
+                 drive: Optional[str] = None) -> MPCSolution:
+        """max_iters: optional runtime iteration cap (default cfg.max_iters).
+        drive: None (the solver's rule: eager where not `graphed`, the chain
+        inside an enclosing capture, else the block graph's replays), or
+        "eager", "blocks" or "chain" (`run_chain`'s drives)."""
+        device = torch.as_tensor(x0).device
+        if drive is None:
+            drive = graphs.drive(device) if self.graphed(device) else "eager"
         s, p, cap = self.setup(x0, u_last, goal_pos, tra_pos, tra_ang, t, U_init, max_iters)
-        if self.graphed(s.J.device):
-            with torch.no_grad():
+        if drive == "eager":
+            return self.solution(self.run_eager(s, p, cap))
+        with torch.no_grad():
+            if drive == "graph":
                 return self.solution(self.run_graph(s, p, cap))
-        return self.solution(self.run_eager(s, p, cap))
+            return self.solution(self.run_chain(s, p, cap, drive))
 
 
 def make_batched_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig,

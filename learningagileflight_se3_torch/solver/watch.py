@@ -19,6 +19,7 @@ import contextlib
 import torch
 
 from learningagileflight_se3_torch.solver import ilqr_batched
+from learningagileflight_se3_torch.utils import graphs
 
 
 @contextlib.contextmanager
@@ -37,13 +38,14 @@ def watched_kernels(on_call):
     `args` and `kwargs` are the wrapper's own, `out` what it returned.
 
     A CUDA solve replays a captured graph, which makes no Python call, so
-    inside the block the solver takes its eager loop on the card too
-    (`ilqr_batched._eager_on_card`, set here and restored on exit): the
-    host loops with a sync per DDP iteration and line-search trip, the same
-    kernels on the same inputs, but none of the gated trips a replay runs."""
+    inside the block the solver, the t-solver, the tick and the closed loop
+    take their eager loops on the card too (`utils/graphs.py eager_on_card`,
+    set here and restored on exit): the host loops with a sync per DDP
+    iteration and line-search trip, the same kernels on the same inputs,
+    but none of the gated trips a replay runs."""
     real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward
     real_sweep = ilqr_batched.parallel_backward
-    eager_before = ilqr_batched._eager_on_card
+    eager_before = graphs.eager_on_card
     at = dict(solve=-1, iteration=-1, trip=0, kk=None)
 
     def sweep(kind, real):
@@ -68,13 +70,13 @@ def watched_kernels(on_call):
 
     ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, sweep("K2", real_k2)
     ilqr_batched.parallel_backward = sweep("parallel sweep", real_sweep)
-    ilqr_batched._eager_on_card = True
+    graphs.eager_on_card = True
     try:
         yield
     finally:
         ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = real_k1, real_k2
         ilqr_batched.parallel_backward = real_sweep
-        ilqr_batched._eager_on_card = eager_before
+        graphs.eager_on_card = eager_before
 
 
 def capture_inputs(run, solve=0, k2_call=10):

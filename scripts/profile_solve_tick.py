@@ -11,19 +11,21 @@ imitation epoch on a CUDA card.
   - The 10 Hz tick at the deployed budget (PYBULLET, H=50, max_iters=30,
     secant traversal-time solver, f32, B=1) replaying
     artifacts/replay_contract.npz: one warm-up pass, one timed pass (per-tick
-    host time, each tick ending in its host fetch; the solver's host syncs
-    over the pass), one pass under
-    torch.profiler.
+    host time, each tick ending in its host fetch; the host reads over the
+    pass), one pass under torch.profiler (each pass on a controller made,
+    and its tick graph captured, before it).
   - The closed loop (--path closed_loop): the nn3_1 DNN2 through the 128
     exported scenarios of seed 2024 x 500 steps at the accelerator settings
     of scripts/torch_bench_success.py (f32, H=50, max_iters=45), timed twice,
     with the host time of its parts (t-solver, replans, the rest) from a
-    third flight whose parts are synced; then the first 100 steps (10
-    replans) under torch.profiler.
+    third flight on the eager step loop whose parts are synced; then the
+    first 100 steps (10 replans) under torch.profiler.
   - The imitation epoch (--path imitation) at the --full width (64 scenarios,
     H=50, 10 passes, window frame, from nn_deep): 3 timed epochs' collect and
     passes, then one epoch under torch.profiler.
 
+Each part runs in a process of its own when several are asked for, and
+each profiles graphs captured before its torch.profiler session starts.
 Each profiled run reports its wall time, the number of device operations,
 the device's busy time and busy share (a floor: the profiler's own host
 overhead inflates the wall time), and the launches and device time of K1
@@ -42,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,8 +59,8 @@ from profile_rl_step import profiled_step  # noqa: E402
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig, Variant  # noqa: E402
 from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem  # noqa: E402
 from learningagileflight_se3_torch.sim.external_controller import ExternalSimController  # noqa: E402
-from learningagileflight_se3_torch.solver import ilqr_batched  # noqa: E402
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver  # noqa: E402
+from learningagileflight_se3_torch.utils import graphs  # noqa: E402
 from learningagileflight_se3_torch.utils.weights import load_dnn2  # noqa: E402
 
 BENCH_CFG = SolverConfig(horizon=50, max_iters=60, tol=1e-4, gtol=3e-4, ls_adaptive=True,
@@ -94,12 +97,12 @@ def solve_part(reps=3):
     for i in range(reps):
         args = bench_args(100 + i, B)
         torch.cuda.synchronize()
-        n = ilqr_batched.host_syncs
+        n = graphs.host_reads
         t0 = time.perf_counter()
         sol = solve(*args)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        syncs.append(ilqr_batched.host_syncs - n)
+        syncs.append(graphs.host_reads - n)
         print(f"solve: B={B} {times[-1]:.4f} s (host, synced), {B / times[-1]:.1f} solves/s, mean iters "
               f"{sol.iterations.float().mean().item():.2f}, line-search trips {int(sol.ls_evals)}, "
               f"{syncs[-1]} host syncs", flush=True)
@@ -107,11 +110,11 @@ def solve_part(reps=3):
     prof = profiled_step(lambda _: solve(*args), None)
     report("solve (graph)", prof)
     # the same solve on the eager loop (the host loops), for comparison
-    n = ilqr_batched.host_syncs
+    n = graphs.host_reads
     eager = profiled_step(lambda _: solve.solution(solve.run_eager(*solve.setup(*args))), None)
     report("solve (eager)", eager)
     return dict(batch=B, solve_s=times, host_syncs=syncs, profiled=prof,
-                eager=dict(profiled=eager, host_syncs=ilqr_batched.host_syncs - n))
+                eager=dict(profiled=eager, host_syncs=graphs.host_reads - n))
 
 
 def tick_part():
@@ -120,13 +123,15 @@ def tick_part():
     cfg = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
                        ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
 
-    def replay():
-        ctrl = ExternalSimController(
+    def make():
+        return ExternalSimController(
             load_dnn2(), final_point=z["final_point"],
             gate_motion=lambda i: (moves[min(i, len(moves) - 1)], V[min(i, len(moves) - 1)]),
             w_rot=float(z["w_rot"]), origin=z["origin"], variant=Variant.PYBULLET, solver_cfg=cfg,
             fixed_point_tol=float(z["fixed_point_tol"]), fixed_point_accel="secant",
             device="cuda", dtype=torch.float32)
+
+    def replay(ctrl):
         lat = []
         for k in range(len(z["tick_steps"])):
             obs = z["observations"][k]
@@ -136,17 +141,19 @@ def tick_part():
             lat.append(time.perf_counter() - t0)
         return np.asarray(lat) * 1e3
 
-    replay()  # warm-up pass
-    syncs = ilqr_batched.host_syncs
-    ms = replay()
-    syncs = ilqr_batched.host_syncs - syncs
+    replay(make())  # warm-up pass
+    ctrl = make()  # the tick's graph is captured here, outside the timed pass
+    syncs = graphs.host_reads
+    ms = replay(ctrl)
+    syncs = graphs.host_reads - syncs
     n = len(ms)
     print(f"tick: {n} ticks, per-tick ms {[round(float(x), 3) for x in ms]}; p50 {np.percentile(ms, 50):.3f} "
-          f"p90 {np.percentile(ms, 90):.3f}; the solver's host syncs {syncs} over the pass", flush=True)
-    prof = profiled_step(lambda _: replay(), None)
+          f"p90 {np.percentile(ms, 90):.3f}; host reads {syncs} over the pass", flush=True)
+    ctrl = make()
+    prof = profiled_step(lambda _: replay(ctrl), None)
     report(f"tick pass ({n} ticks)", prof)
     return dict(ticks=n, tick_ms=ms.tolist(), p50_ms=float(np.percentile(ms, 50)),
-                p90_ms=float(np.percentile(ms, 90)), solver_host_syncs=syncs, profiled=prof)
+                p90_ms=float(np.percentile(ms, 90)), host_reads=syncs, profiled=prof)
 
 
 def closed_loop_part():
@@ -167,7 +174,9 @@ def closed_loop_part():
               flush=True)
 
     # the host time of the parts: one more flight with the t-solver and the
-    # solver wrapped in synced timers (the syncs add a little)
+    # solver wrapped in synced timers (the syncs add a little), on the eager
+    # step loop (the watchers' drive: a replay of the step graphs has no
+    # parts the host could time)
     parts = {"tsolve": 0.0, "solve": 0.0}
     calls = {"tsolve": 0, "solve": 0}
 
@@ -189,16 +198,19 @@ def closed_loop_part():
     real = closed_loop.make_traversal_time_solver, closed_loop.make_batched_mpc_solver
     closed_loop.make_traversal_time_solver = timed("tsolve", real[0])
     closed_loop.make_batched_mpc_solver = timed("solve", real[1])
+    graphs.eager_on_card = True
     try:
         _, _, wall = fly(model2, scen, noise, steps=500, seed=2024)
     finally:
+        graphs.eager_on_card = False
         closed_loop.make_traversal_time_solver, closed_loop.make_batched_mpc_solver = real
     parts["rest"] = wall - parts["tsolve"] - parts["solve"]
-    print(f"closed loop parts (host, synced): wall {wall:.3f} s: t-solver {parts['tsolve']:.3f} s over "
+    print(f"closed loop parts (eager step loop, host, synced): wall {wall:.3f} s: t-solver {parts['tsolve']:.3f} s over "
           f"{calls['tsolve']} calls, replans {parts['solve']:.3f} s over {calls['solve']} solves, the rest "
           f"(gate, DNN2, plant, log) {parts['rest']:.3f} s", flush=True)
 
     sim = closed_loop.make_closed_loop_sim(model2, solver_cfg=flight_solver_config(), steps=100)
+    sim(scen, gate_noise=noise[:, :100])  # captures the step graphs before the profiler starts
     prof = profiled_step(lambda _: sim(scen, gate_noise=noise[:, :100]), None)
     report("closed loop, first 100 steps of 128 scenarios", prof)
     return dict(flights=flights, parts=parts, part_calls=calls, parts_wall_s=wall, profiled_100_steps=prof)
@@ -262,10 +274,24 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     summary = dict(device=smi, torch=torch.__version__, cuda=torch.version.cuda)
-    for path in args.path.split(","):
+    paths = args.path.split(",")
+    for path in paths:
         if path not in PARTS:
             ap.error(f"unknown path {path!r}")
-        summary[path] = PARTS[path](args.reps) if path == "solve" else PARTS[path]()
+    if len(paths) == 1:
+        summary[paths[0]] = PARTS[paths[0]](args.reps) if paths[0] == "solve" else PARTS[paths[0]]()
+    else:
+        # each part in a process of its own: on an H100 with torch 2.11 a
+        # torch.profiler session over a graph with conditional nodes (the
+        # tick's, a flight step's) that was captured after an earlier
+        # session of the same process ended it with a segmentation fault
+        with tempfile.TemporaryDirectory() as tmp:
+            for path in paths:
+                out = os.path.join(tmp, f"{path}.json")
+                subprocess.run([sys.executable, os.path.abspath(__file__), "--path", path, "--reps",
+                                str(args.reps), "--out", out], check=True)
+                with open(out) as f:
+                    summary[path] = json.load(f)[path]
     print(smi)
     line = json.dumps(summary)
     print(line)

@@ -6,7 +6,9 @@ collect on the card against the CPU, the entry points' default device,
 the flagship forward step on the kernels, and the solver's DDP loop as a
 replayed CUDA graph against the eager host loop (equal field for field, no
 aliasing, the launch counts, the parallel sweep, the watchers' eager
-loop, a failed capture raising).
+loop, a failed capture raising), and the flight loop's graphs (the
+t-solver's chain, the tick's graph, the closed loop's step graphs) against
+their eager drives.
 Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
@@ -14,6 +16,8 @@ a machine without JAX:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -23,8 +27,12 @@ from learningagileflight_se3_torch.config import CostWeights, QuadParams, Reward
 from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
 from learningagileflight_se3_torch.ops.inputs import as_tensors, main_path_inputs, with_failing_lanes
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3_torch.utils import graphs
 
 pytestmark = pytest.mark.gpu
+
+CONTRACT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "artifacts",
+                        "replay_contract.npz")
 
 
 @pytest.fixture
@@ -371,8 +379,10 @@ def test_closed_loop_on_card_matches_cpu(cuda):
     for dev in ("cuda", "cpu"):
         sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=30, device=dev,
                                    dtype=torch.float64)
+        graphs.settle()
         n = (rollout.launches, riccati_fused.launches)
         logs[dev] = sim(scen[:16], gate_noise=noise[:16, :30])
+        graphs.settle()  # the launches of the step graphs' conditional bodies
         launched = rollout.launches > n[0] and riccati_fused.launches > n[1]
         assert launched == (dev == "cuda")
     on_card, on_cpu = logs["cuda"], logs["cpu"]
@@ -389,11 +399,11 @@ def test_closed_loop_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("accel", ["reference", "secant"])
 def test_tsolver_on_card_matches_cpu(cuda, accel):
-    """On the card the t-solver replays each DNN2 evaluation as a CUDA graph
-    over static buffers; it gives the CPU's (eager) times in f64 (1e-9) and
-    f32 (1e-3: the fixed point's own tolerance), for a batch and for one
-    problem, with the pitch rate a number or a tensor, and again when a
-    second call of the same shape replays the first call's graph."""
+    """On the card the t-solver replays its whole fixed point as a CUDA
+    graph over static buffers; it gives the CPU's (eager) times in f64
+    (1e-9) and f32 (1e-3: the fixed point's own tolerance), for a batch and
+    for one problem, with the pitch rate a number or a tensor, and again
+    when a second call of the same shape replays the first call's graph."""
     from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
     from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
     from learningagileflight_se3_torch.utils.weights import load_dnn2
@@ -660,9 +670,9 @@ def test_graph_solve_equals_eager_solve(cuda, B, dtype, cfg):
     solver, args = _graph_case(B, dtype, cfg)
     with torch.no_grad():
         eager = solver.solution(solver.run_eager(*solver.setup(*args)))
-        n = ilqr_batched.host_syncs
+        n = graphs.host_reads
         graph = solver(*args)
-        syncs = ilqr_batched.host_syncs - n
+        syncs = graphs.host_reads - n
     assert _unequal(graph, eager) == []
     assert solver.captures == 1 and solver.pool_bytes() > 0
     assert syncs <= -(-GRAPH_CFGS[cfg]["max_iters"] // ilqr_batched.GRAPH_BLOCK) + 2
@@ -734,10 +744,118 @@ def test_watchers_run_the_eager_loop_on_the_card(cuda):
         graph = solver(*args)
         with watched_kernels(lambda kind, *a: calls.append(kind)):
             watched = solver(*args)
-    assert not ilqr_batched._eager_on_card
+    assert not graphs.eager_on_card
     assert calls.count("K2") == int(watched.iterations.max()) and calls.count("K1") == int(watched.ls_evals)
     assert calls.count("K1 cost") == 1
     assert _unequal(graph, watched) == []
+
+
+@pytest.mark.parametrize("accel", ["reference", "secant"])
+def test_tsolver_chain_equals_eager(cuda, accel):
+    """The t-solver's graph (the guess, the seeds and its chain of
+    conditional blocks) against its eager loop on the card, bit for bit, at
+    B=1 and B=64 in f32 and f64; a graph solve reads nothing from the card
+    and counts the eager loop's iterations."""
+    from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+    from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
+    from learningagileflight_se3_torch.utils.weights import load_dnn2
+
+    for dtype in (torch.float32, torch.float64):
+        solver = make_traversal_time_solver(load_dnn2().to(device="cuda", dtype=dtype), accel=accel)
+        prob = scenario_to_problem(sample_scenarios(torch.Generator(device="cuda").manual_seed(4), 64, dtype=dtype))
+        velo = torch.tensor([1.0, 0.3, 0.4], dtype=dtype, device="cuda").expand(64, 3)
+        solver.count = torch.zeros(2, dtype=torch.int32, device="cuda")  # before the graphs' captures
+        for B in (64, 1):
+            args = [a[:B] for a in (prob["x0"], prob["goal_pos"], prob["gate_pts"], velo)]
+            if B == 1:
+                args = [a[0] for a in args]
+            counts = {}
+            for drive in ("eager", "graph", "graph"):
+                solver.count.zero_()
+                n = graphs.host_reads
+                t = solver(*args, 1.5707963, drive=None if drive == "graph" else drive)
+                counts[drive] = (t, solver.count.tolist(), graphs.host_reads - n)
+            (te, ce, re), (tg, cg, rg) = counts["eager"], counts["graph"]
+            assert torch.equal(tg, te), (accel, dtype, B)
+            assert rg == 0 and re == ce[1] + 1 and cg[1] == ce[1] and cg[0] == -(-ce[1] // 4)
+        assert solver.captures.count == 2
+
+
+def _tick_pass(dtype, cfg, accel):
+    """One pass of ExternalSimController over the replay contract: actions,
+    traversal times, host reads per tick."""
+    from learningagileflight_se3_torch.config import Variant
+    from learningagileflight_se3_torch.sim.external_controller import ExternalSimController
+    from learningagileflight_se3_torch.utils.weights import load_dnn2
+
+    z = np.load(CONTRACT)
+    moves, V = z["gate_moves"], z["gate_vel"]
+    ctrl = ExternalSimController(
+        load_dnn2(), final_point=z["final_point"],
+        gate_motion=lambda i: (moves[min(i, len(moves) - 1)], V[min(i, len(moves) - 1)]),
+        w_rot=float(z["w_rot"]), origin=z["origin"], variant=Variant.PYBULLET, solver_cfg=cfg,
+        fixed_point_tol=float(z["fixed_point_tol"]), fixed_point_accel=accel, device="cuda", dtype=dtype)
+    acts, ts, reads = [], [], []
+    for k in range(len(z["tick_steps"])):
+        obs = z["observations"][k]
+        n = graphs.host_reads
+        a, t = ctrl.compute_control(step=int(z["tick_steps"][k]), cur_pos=obs[0:3], cur_quat_xyzw=obs[3:7],
+                                    cur_vel=obs[10:13], cur_euler_rates=obs[13:16], cur_rpy=obs[7:10])
+        reads.append(graphs.host_reads - n)
+        acts.append(a)
+        ts.append(t)
+    return np.asarray(acts), np.asarray(ts), reads, z
+
+
+def test_tick_graph_equals_eager_tick(cuda, monkeypatch):
+    """The tick as one replayed graph against the same tick run eagerly on
+    the card (the watchers' drive: the solve's host loop, the fixed point's
+    own graph), bit for bit, in f64 on the replay
+    contract (which it holds: wrench within 1e-4, t within 1e-6) and in f32
+    at the deployed budget (secant, max_iters=30); one host read a tick."""
+    z = np.load(CONTRACT)
+    contract = SolverConfig(horizon=int(z["solver_horizon"]), max_iters=int(z["solver_max_iters"]),
+                            u_ub=float(z["solver_u_ub"]))
+    deployed = SolverConfig(horizon=50, max_iters=30, u_ub=float(z["solver_u_ub"]), tol=1e-4, gtol=3e-4,
+                            ls_adaptive=True, ls_max_trips=4, no_progress_iters=10)
+    for dtype, cfg, accel in ((torch.float64, contract, "reference"), (torch.float32, deployed, "secant")):
+        acts, ts, reads, _ = _tick_pass(dtype, cfg, accel)
+        monkeypatch.setattr(graphs, "eager_on_card", True)
+        acts_e, ts_e, reads_e, _ = _tick_pass(dtype, cfg, accel)
+        monkeypatch.setattr(graphs, "eager_on_card", False)
+        assert np.array_equal(acts, acts_e) and np.array_equal(ts, ts_e), dtype
+        assert set(reads) == {1} and min(reads_e) > 1
+        if dtype == torch.float64:
+            assert np.abs(acts - z["actions"]).max() <= 1e-4 and np.abs(ts - z["tra_times"]).max() < 1e-6
+
+
+def test_step_graphs_equal_the_step_loop(cuda):
+    """The closed loop's hold and replan graphs against the host step loop
+    on the card (each fixed point and solve replaying its own graph): 8 exported scenarios x 30 steps (3 replans), f32 at the
+    flight's settings, every ClosedLoopLog field equal bit for bit, with and
+    without the Kalman filter; no host read inside a flight, the first (it
+    captures) or the second; K1 and K2 launched by the graphs' bodies."""
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    obs_noise = 0.01 * torch.randn((8, 30, 4, 3), generator=torch.Generator().manual_seed(2))
+    for kalman in (False, True):
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=30,
+                                   estimate_gate_motion=kalman, device="cuda")
+        kw = dict(gate_noise=noise[:8, :30], obs_noise=obs_noise if kalman else None)
+        eager = sim(scen[:8], drive="eager", **kw)
+        for _ in range(2):
+            graphs.settle()
+            n, k = graphs.host_reads, (rollout.launches, riccati_fused.launches)
+            log = sim(scen[:8], **kw)
+            assert graphs.host_reads == n
+            torch.cuda.synchronize()
+            graphs.settle()
+            assert rollout.launches > k[0] and riccati_fused.launches > k[1]
+            assert [f for f, a, b in zip(log._fields, log, eager) if not torch.equal(a, b)] == [], kalman
+        assert sim.captures.count == 2
 
 
 def test_parallel_sweep_keeps_the_eager_loop(cuda):
@@ -753,9 +871,9 @@ def test_parallel_sweep_keeps_the_eager_loop(cuda):
                                      SolverConfig(horizon=50, max_iters=20, use_ddp=False, backward="parallel"))
     args = bench_problems(64, "cuda", seed=2, dtype=torch.float64)
     with torch.no_grad():
-        n = ilqr_batched.host_syncs
+        n = graphs.host_reads
         sol = solver(*args)
-        syncs = ilqr_batched.host_syncs - n
+        syncs = graphs.host_reads - n
         blocks = solver.solution(solver.run_blocks(*solver.setup(*args)))
         assert solver.captures == 0 and syncs >= int(sol.iterations.max())
         assert _unequal(sol, blocks) == []

@@ -20,6 +20,7 @@ from learningagileflight_se3_torch.config import CostWeights, QuadParams, Solver
 from learningagileflight_se3_torch.ops.inputs import bench_problems
 from learningagileflight_se3_torch.solver import ilqr_batched
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+from learningagileflight_se3_torch.utils import graphs
 
 H, B = 10, 8
 LADDERS = {  # the golden run's full ladder; bench.py's 4-trip cap, whose failing lanes go deep
@@ -75,11 +76,11 @@ def test_blocks_equal_eager_loop(k, ladder, nprog, start):
     solver, args, U_init, end, deep = _case(ladder, nprog, start)
     if ladder == "cap4":
         assert any(deep), "no lane went deep: the escalation path is not exercised"
-    n = ilqr_batched.host_syncs
+    n = graphs.host_reads
     blocks = solver.run_blocks(*solver.setup(*args, U_init=U_init), k=k)
     assert _equal_fields(blocks, end) == []
     # the schedule reads at most one flag per block, and none after the last
-    assert ilqr_batched.host_syncs - n <= -(-16 // k) - 1
+    assert graphs.host_reads - n <= -(-16 // k) - 1
     sol_b, sol_e = solver.solution(blocks), solver.solution(end)
     assert _equal_fields(sol_b, sol_e) == []
 
