@@ -227,6 +227,20 @@ Phases, each printing its numbers on lines of its own:
              the bench point (B=2048, f32) and at B=1: equal fields, times
              in turns, host reads
 
+  20 spans  utils/profiling.py's spans on the card, in a process of its own
+             (`--spans-check`: a second torch.profiler session over
+             conditional graphs in one process has crashed): (a) their cost,
+             spans on against off in turns, over 10 batches of the bench
+             point (B=2048, f32) and a 100-step flight of seed 2024's 128
+             scenarios, each state's graphs captured first, and the stamps a
+             batch and a step; (b) under one short profiler session, a solve
+             and a 20-step flight with spans on: every stamp, mapped onto
+             the host's clock and from there onto the profiler's (by the host
+             spans, which are also the profiler's `record_function`s and
+             bracket the offset between the two clocks), falls within its
+             `laf_stamp_kernel` in the trace to within the clock's error, the
+             bracket's half-width and 10 us; the clock's error and drift
+
 The last three lines are the kernels JSON (each row's `launches` is the
 count of one synced solve of phase 4's solve bench at bench.py's config,
 the main path; `launches_by_path` each path's own, "solve_bench" the whole
@@ -244,6 +258,7 @@ Usage: python3 chip_smoke.py
                                               result lines)
        python3 chip_smoke.py --plain-side closed_loop --out FILE   (what phases 9, 10, 11 and 15
                                               start for the host side of their comparisons)
+       python3 chip_smoke.py --spans-check   (what phase 20 starts)
 """
 
 from __future__ import annotations
@@ -536,6 +551,126 @@ def recorded_tsolves():
         yield calls
     finally:
         TraversalTimeSolver.__call__ = real
+
+
+SPANS_SLACK_NS = 10_000  # phase 20: a stamp may fall this far outside its kernel, beyond the clock's error
+
+
+def stamps_in_kernels(stamps, kernels, offset_ns):
+    """Phase 20's test: the stamps (host ns, in time order) shifted by
+    `offset_ns` onto the profiler's clock, against the stamp kernels
+    (start, end) of the trace in time order; (how far each stamp falls
+    outside its kernel, in ns, 0 inside), or None where the counts differ."""
+    if len(stamps) != len(kernels):
+        return None
+    return [max(0, s - e, b - s) for s, (b, e) in zip((t + offset_ns for t in stamps), kernels)]
+
+
+def spans_check():
+    """Phase 20 in a process of its own; the exit code 1 on a failed gate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from learningagileflight_se3_torch.benchmarks.problems import bench_args, scenarios
+    from learningagileflight_se3_torch.benchmarks.solve import bench_config
+    from learningagileflight_se3_torch.config import CostWeights, QuadParams
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+    from learningagileflight_se3_torch.utils.device import platform_line
+    from learningagileflight_se3_torch.utils.profiling import spans
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    smi = platform_line("cuda")
+    failures = []
+    solver = make_batched_mpc_solver(QuadParams(), CostWeights(), bench_config(50))
+    args = bench_args(scenarios(100, 2048), "cuda")
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    scen = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
+    sims = {n: make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=n, device="cuda")
+            for n in (100, 20)}
+    solve = lambda: solver(*args).control_traj.cpu()  # noqa: E731
+    fly = lambda n: sims[n](scen, gate_noise=noise[:, :n]).states.cpu()  # noqa: E731
+
+    def state(on):
+        if on:
+            spans.enable("cuda")
+        else:
+            spans.disable()
+
+    # (a) the cost: each state's graphs captured, then the two states in turns
+    for on in (False, True):
+        state(on)
+        solve(), fly(100), fly(20)
+    times = {(what, on): [] for what in ("solve", "flight") for on in (False, True)}
+    for on in (False, True, True, False) * 3:
+        state(on)
+        for what, fn, n in (("solve", solve, 10), ("flight", lambda: fly(100), 1)):
+            spans.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[what, on].append((time.perf_counter() - t0) / n)
+            stamps = spans.collect()["stamps"]
+        log(f"spans {'on' if on else 'off'}: solve {times['solve', on][-1] * 1e3:.3f} ms a batch, flight "
+            f"{times['flight', on][-1] * 1e3 / 100:.3f} ms a step, {stamps} stamps in its flight")
+    for what, per in (("solve", "batch (B=2048, f32)"), ("flight", "100-step flight (B=128)")):
+        off, on = np.median(times[what, False]), np.median(times[what, True])
+        log(f"spans cost {what}: on {on * 1e3:.3f} ms against off {off * 1e3:.3f} ms a {per}, "
+            f"{100.0 * (on / off - 1.0):+.2f}% (medians of 6 turns each, host clock, synced; off "
+            f"{sorted(round(t * 1e3, 3) for t in times[what, False])}, on "
+            f"{sorted(round(t * 1e3, 3) for t in times[what, True])}) [{smi}]")
+
+    # (b) the stamps against the profiler's kernels
+    state(True)
+    spans.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solve()
+        fly(20)
+        torch.cuda.synchronize()
+    got = spans.collect()
+    kernels, host_ops = [], {}  # the trace's stamp kernels, and its host ops by name: (start, end) ns
+    for ev in prof.profiler.kineto_results.events():
+        s = int(ev.start_ns()) if hasattr(ev, "start_ns") else int(ev.start_us() * 1000)
+        e = s + int(ev.duration_ns()) if hasattr(ev, "duration_ns") else int(ev.end_us() * 1000)
+        if "CUDA" not in str(ev.device_type()):
+            host_ops.setdefault(ev.name(), []).append((s, e))
+        elif "laf_stamp_kernel" in ev.name():
+            kernels.append((s, e))
+    kernels.sort()
+    stamps = sorted(t for _, s, e in got["device"] for t in (s, e))
+    # the host clock onto the profiler's: each host span is a record_function
+    # the profiler opens after the span's start and closes before its end
+    mine, lo, hi = {}, [], []
+    for name, s, e in got["host"]:
+        mine.setdefault(name, []).append((s, e))
+    for name, ours in mine.items():
+        theirs = sorted(host_ops.get(name, []))
+        if len(theirs) == len(ours):
+            for (s, e), (ps, pe) in zip(sorted(ours), theirs):
+                lo.append(pe - e)
+                hi.append(ps - s)
+    offset = (max(lo) + min(hi)) // 2 if lo else 0
+    align = (min(hi) - max(lo) + 1) // 2 if lo else 0
+    tol = got["clock"]["err_ns"] + max(align, 0) + SPANS_SLACK_NS
+    outside = stamps_in_kernels(stamps, kernels, offset)
+    signed = sorted(s + offset - (b + e) // 2 for s, (b, e) in zip(stamps, kernels)) if outside is not None else []
+    log(f"spans against the profiler: {len(stamps)} stamps ({got['stamps']} written, {got['unpaired']} unpaired, "
+        f"overflow {got['overflow']}), {len(kernels)} laf_stamp_kernel launches in the trace (mean "
+        f"{np.mean([e - b for b, e in kernels]) if kernels else 0:.0f} ns); the host clock to the profiler's by "
+        f"{len(lo)} host spans: offset within [{max(lo) if lo else 'n/a'}, {min(hi) if hi else 'n/a'}] ns, its "
+        f"half-width {align} ns; clock error {got['clock']['err_ns']} ns, drift {got['clock']['drift_ppm']:.3f} ppm; "
+        + ("counts differ" if outside is None else
+           f"a stamp less its kernel's middle: min {signed[0]} p50 {signed[len(signed) // 2]} max {signed[-1]} ns; "
+           f"outside its kernel max {max(outside)} ns, {sum(o > tol for o in outside)} over {tol} ns") + f" [{smi}]")
+    if outside is None or not lo or max(outside) > tol:
+        failures.append("a stamp outside its kernel")
+    if got["overflow"] or got["unpaired"] or got["clock"]["err_ns"] > 50_000:
+        failures.append(f"overflow {got['overflow']}, unpaired {got['unpaired']}, clock {got['clock']}")
+    for f in failures:
+        log(f"FAIL: phase 20 {f}")
+    return 1 if failures else 0
 
 
 def reset_launches():
@@ -2426,6 +2561,14 @@ class Smoke:
                 log(f"flight loop flight {what}: second graph flight {time.perf_counter() - t0:.3f} s (host clock, "
                     f"synced) [{self.smi}]")
 
+    def spans(self):
+        """(20) spans_check() in a process of its own."""
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--spans-check"], capture_output=True,
+                              text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            log(line)
+        self.check(proc.returncode == 0, f"phase 20 spans: exit code {proc.returncode}\n{proc.stderr[-3000:]}")
+
     def _flight_loop_run_chain(self):
         """(d) the solve as a chain of conditional blocks in a graph of its own
         against run_graph's replays with a flag read a block: the bench point
@@ -2494,7 +2637,10 @@ def main():
                     help="run one comparison's plain path on the CPU and save it to --out (phases 9, 10, 11 "
                          "and 15 start this in a process of its own)")
     ap.add_argument("--out", default=None, help="the result file of --plain-side")
+    ap.add_argument("--spans-check", action="store_true", help="run phase 20's check in this process")
     args = ap.parse_args()
+    if args.spans_check:
+        return spans_check()
     if args.plain_side:
         torch.set_num_threads(1 if args.plain_side.startswith("oracle") else 2)
         torch.save(PLAIN_SIDES[args.plain_side]("cpu"), args.out)
@@ -2524,7 +2670,7 @@ def drive(s, only):
               ("16 benchmarks", s.benchmarks), ("17 entry", s.entry),
               # before phase 18: after its torch.profiler sessions phase 19's ticks ran 2 to 2.5
               # times slower on the host, and see _flight_loop_flights
-              ("19 flight loop", s.flight_loop), ("18 graph", s.graph)]
+              ("19 flight loop", s.flight_loop), ("18 graph", s.graph), ("20 spans", s.spans)]
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)

@@ -149,13 +149,16 @@ def library() -> KernelLibrary:
 
 @functools.cache
 def graph_library() -> KernelLibrary:
-    """Build (if needed) and load utils/graph_if.cu, the CUDA-graph
-    conditional nodes of utils/graphs.py (no kernel of the port's own)."""
+    """Build (if needed) and load utils/graph_if.cu: the CUDA-graph
+    conditional nodes of utils/graphs.py and the clock stamp of
+    utils/profiling.py's spans (no kernel of the solver's own)."""
     lib, so, seconds, ptxas_log = _build([GRAPH_IF_SOURCE], "laf_graph_if")
     lib.laf_if_begin.argtypes = [_p, _p, _p]
     lib.laf_if_begin.restype = _i
     lib.laf_if_end.argtypes = [_p]
     lib.laf_if_end.restype = _i
+    lib.laf_stamp.argtypes = [_p, _p, ctypes.c_longlong, ctypes.c_longlong, _p]
+    lib.laf_stamp.restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)
 
 

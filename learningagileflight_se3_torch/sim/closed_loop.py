@@ -25,6 +25,16 @@ watchers, the same step runs in a host loop over the steps, the loop tests
 of its fixed points and solves host reads.  A lane
 whose state stops being finite stays a lane: its rows go NaN, the solver
 retires it by its regularisation blow-out, and no other lane reads it.
+
+With utils/profiling.py's spans on, a flight records the device spans
+"flight.step" (a step's work, first node to last), "flight.tsolve" (the
+fixed point with its conditional blocks) and "flight.replan" (the window
+inputs, DNN2, the solve and the warm-start shift), and the host spans
+"flight.prepare" (the flight's inputs, gate motion and buffers),
+"flight.inputs" (a step's copies in), "flight.launch" (a step's replay, or
+its queuing in the host step loop), "flight.log" (a step's copies out) and
+"flight.finish"; the t-solver adds [blocks run, iterations] to the counter
+"flight.tsolve".  The step graphs of the two states are kept apart.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 from learningagileflight_se3_torch.utils import graphs
 from learningagileflight_se3_torch.utils.device import resolve_device
+from learningagileflight_se3_torch.utils.profiling import spans
 
 
 class _Carry(NamedTuple):
@@ -176,7 +187,7 @@ def make_closed_loop_sim(
     step_plant = euler_step_renorm if renorm_plant else euler_step
     u_mid = 0.5 * (solver_cfg.u_lb + solver_cfg.u_ub)
     captures = graphs.Captures()
-    step_graphs = {}  # (B, with observation noise) -> (static carry, inputs, outputs, {replan: replay})
+    step_graphs = {}  # (B, with observation noise, spans on) -> (static carry, inputs, outputs, {replan: replay})
 
     def step(c: _Carry, x: _Inputs, replan: bool, noisy: bool, drive):
         """One plant step (with a replan or not): the next carry and the
@@ -188,21 +199,23 @@ def make_closed_loop_sim(
             vel, w_use = estimated_velocity(ks)
         else:
             vel, w_use = x.vel, x.w
-        t = tsolve(c.state, x.final, x.pts, vel, w_use, drive=drive)
+        with spans.device("flight.tsolve", device):
+            t = tsolve(c.state, x.final, x.pts, vel, w_use, drive=drive)
         u, U_warm, out = c.u, c.U_warm, c.out
         iters = torch.zeros_like(c.state[:, 0], dtype=torch.int32)
         if replan:
-            # the gate pose predicted t ahead, then the window-frame MPC
-            pts_f = rotate_y(translate(x.pts, t[:, None] * vel), t * w_use)
-            inp = window_inputs(pts_f, c.state, x.final)
-            out = model2(inp)
-            sol = solve(inp[:, 0:13], u, inp[:, 13:16], out[:, 0:3], out[:, 3:6], out[:, 6],
-                        U_init=U_warm if warm_start else None, drive=drive)
-            U = sol.control_traj.to(dtype)
-            u = U[:, 0]
-            # the time-shifted remainder of this plan, its last control held
-            U_warm = torch.cat([U[:, warm_shift:], U[:, -1:].expand(-1, warm_shift, 4)], dim=1)
-            iters = sol.iterations
+            with spans.device("flight.replan", device):
+                # the gate pose predicted t ahead, then the window-frame MPC
+                pts_f = rotate_y(translate(x.pts, t[:, None] * vel), t * w_use)
+                inp = window_inputs(pts_f, c.state, x.final)
+                out = model2(inp)
+                sol = solve(inp[:, 0:13], u, inp[:, 13:16], out[:, 0:3], out[:, 3:6], out[:, 6],
+                            U_init=U_warm if warm_start else None, drive=drive)
+                U = sol.control_traj.to(dtype)
+                u = U[:, 0]
+                # the time-shifted remainder of this plan, its last control held
+                U_warm = torch.cat([U[:, warm_shift:], U[:, -1:].expand(-1, warm_shift, 4)], dim=1)
+                iters = sol.iterations
         state = step_plant(c.state, u, plant_dt, params_q)
         vel_used = torch.cat([vel, w_use[:, None]], dim=-1)
         return (_Carry(state, u, U_warm, out, kx, kP),
@@ -218,17 +231,18 @@ def make_closed_loop_sim(
                      torch.zeros_like(x.w, dtype=torch.int32))
 
         def run(replan, drive):
-            nc, no = step(c, x, replan, noisy, drive)
-            for dst, src in zip((*c, *o), (*nc, *no)):
-                dst.copy_(src)
+            with spans.device("flight.step", device):
+                nc, no = step(c, x, replan, noisy, drive)
+                for dst, src in zip((*c, *o), (*nc, *no)):
+                    dst.copy_(src)
 
         return c, x, o, run
 
     def step_graphs_for(c0: _Carry, x0: _Inputs, noisy: bool):
         """The static buffers and {replan: replay} of the hold and replan
-        graphs for this batch size and noise, captured at the first flight
-        (each warm-up runs every block on a copy of the carry)."""
-        key = (c0.state.shape[0], noisy)
+        graphs for this batch size, noise and spans' state, captured at the
+        first flight (each warm-up runs every block on a copy of the carry)."""
+        key = (c0.state.shape[0], noisy, spans.on)
         if key not in step_graphs:
             c, x, o, run = buffers(c0, x0, noisy)
             warm = lambda r: lambda: step(_Carry(*(a.clone() for a in c)), x, r, noisy, "blocks")  # noqa: E731
@@ -239,41 +253,45 @@ def make_closed_loop_sim(
     @torch.no_grad()
     def sim(scenarios, generator: Optional[torch.Generator] = None, gate_noise=None,
             obs_noise=None, drive=None):
-        kw = dict(dtype=dtype, device=device)
-        on_device = lambda a: None if a is None else torch.as_tensor(a).to(**kw)
-        scen = on_device(scenarios)
-        B = scen.shape[0]
-        prob = scenario_to_problem(scen)  # gate corners pitched by scenario[8]
-        final, pitch0 = prob["goal_pos"], scen[:, 8]
-        moves, V = gate_move(prob["gate_pts"], generator, motion_cfg.velocity, w_rot,
-                             T=steps * plant_dt, dt=plant_dt, noise_std=motion_cfg.noise_std,
-                             noise_clip=motion_cfg.noise_clip, noise=on_device(gate_noise))
-        obs_noise = on_device(obs_noise)
-        if estimate_gate_motion and obs_noise is None and generator is not None and gate_obs_noise > 0.0:
-            obs_noise = gate_obs_noise * torch.randn(
-                (B, steps, 4, 3), generator=generator, dtype=dtype, device=generator.device).to(device)
-        noisy = estimate_gate_motion and obs_noise is not None
+        # the counter is made before any capture that adds to it
+        tsolve.count = spans.counter("flight.tsolve", device) if spans.on else None
+        with spans.host("flight.prepare"):
+            kw = dict(dtype=dtype, device=device)
+            on_device = lambda a: None if a is None else torch.as_tensor(a).to(**kw)
+            scen = on_device(scenarios)
+            B = scen.shape[0]
+            prob = scenario_to_problem(scen)  # gate corners pitched by scenario[8]
+            final, pitch0 = prob["goal_pos"], scen[:, 8]
+            moves, V = gate_move(prob["gate_pts"], generator, motion_cfg.velocity, w_rot,
+                                 T=steps * plant_dt, dt=plant_dt, noise_std=motion_cfg.noise_std,
+                                 noise_clip=motion_cfg.noise_clip, noise=on_device(gate_noise))
+            obs_noise = on_device(obs_noise)
+            if estimate_gate_motion and obs_noise is None and generator is not None and gate_obs_noise > 0.0:
+                obs_noise = gate_obs_noise * torch.randn(
+                    (B, steps, 4, 3), generator=generator, dtype=dtype, device=generator.device).to(device)
+            noisy = estimate_gate_motion and obs_noise is not None
 
-        ks = kalman_init(gate_observation(moves[:, 0]), dtype=dtype)
-        c = _Carry(prob["x0"], torch.zeros((B, 4), **kw), torch.full((B, H, 4), u_mid, **kw),
-                   torch.zeros((B, 7), **kw), ks.x, ks.P)
-        zeros3 = torch.zeros((B, 4, 3), **kw)
-        x = _Inputs(moves[:, 0], V[:, 0], obs_noise[:, 0] if noisy else zeros3, final,
-                    torch.full((B,), w_rot, **kw))
+            ks = kalman_init(gate_observation(moves[:, 0]), dtype=dtype)
+            c = _Carry(prob["x0"], torch.zeros((B, 4), **kw), torch.full((B, H, 4), u_mid, **kw),
+                       torch.zeros((B, 7), **kw), ks.x, ks.P)
+            zeros3 = torch.zeros((B, 4, 3), **kw)
+            x = _Inputs(moves[:, 0], V[:, 0], obs_noise[:, 0] if noisy else zeros3, final,
+                        torch.full((B,), w_rot, **kw))
 
-        # time-major logs, written in place; row 0 of the first four is the start
-        states = torch.zeros((steps + 1, B, 13), **kw)
-        controls = torch.zeros((steps + 1, B, 4), **kw)
-        torques = torch.zeros((steps + 1, B, 4), **kw)
-        hl = torch.zeros((steps + 1, B, 7), **kw)
-        tra_times = torch.zeros((steps, B), **kw)
-        iters = torch.zeros((steps, B), dtype=torch.int32, device=device)
-        vel_used = torch.zeros((steps, B, 4), **kw)
-        states[0] = c.state
+            # time-major logs, written in place; row 0 of the first four is the start
+            states = torch.zeros((steps + 1, B, 13), **kw)
+            controls = torch.zeros((steps + 1, B, 4), **kw)
+            torques = torch.zeros((steps + 1, B, 4), **kw)
+            hl = torch.zeros((steps + 1, B, 7), **kw)
+            tra_times = torch.zeros((steps, B), **kw)
+            iters = torch.zeros((steps, B), dtype=torch.int32, device=device)
+            vel_used = torch.zeros((steps, B, 4), **kw)
+            states[0] = c.state
 
-        drive = drive or graphs.drive(device)
-        if drive == "graph" and not solve.graphed(device):
-            drive = "eager"
+            drive = drive or graphs.drive(device)
+            if drive == "graph" and not solve.graphed(device):
+                drive = "eager"
+
         static = drive in ("graph", "blocks")
         if drive == "graph":
             c_s, x_s, o, go = step_graphs_for(c, x, noisy)
@@ -286,36 +304,41 @@ def make_closed_loop_sim(
         for i in range(steps):
             replan = i % control_every == 0
             if static:
-                x_s.pts.copy_(moves[:, i])
-                x_s.vel.copy_(V[:, i])
-                if noisy:
-                    x_s.noise.copy_(obs_noise[:, i])
-                go[replan]()
+                with spans.host("flight.inputs"):
+                    x_s.pts.copy_(moves[:, i])
+                    x_s.vel.copy_(V[:, i])
+                    if noisy:
+                        x_s.noise.copy_(obs_noise[:, i])
+                with spans.host("flight.launch"):
+                    go[replan]()
                 c = c_s
             else:
                 x = x._replace(pts=moves[:, i], vel=V[:, i], noise=obs_noise[:, i] if noisy else zeros3)
-                c, o = step(c, x, replan, noisy, None)
-            states[i + 1], controls[i + 1], hl[i + 1], torques[i + 1] = c.state, c.u, c.out, o.torques
-            tra_times[i], vel_used[i] = o.t, o.vel_used
-            if replan:
-                iters[i] = o.iters
+                with spans.host("flight.launch"), spans.device("flight.step", device):
+                    c, o = step(c, x, replan, noisy, None)
+            with spans.host("flight.log"):
+                states[i + 1], controls[i + 1], hl[i + 1], torques[i + 1] = c.state, c.u, c.out, o.torques
+                tra_times[i], vel_used[i] = o.t, o.vel_used
+                if replan:
+                    iters[i] = o.iters
 
-        times = torch.arange(steps, **kw) * plant_dt
-        lanes_first = lambda a: a.transpose(0, 1).contiguous()
-        tra_times = lanes_first(tra_times)
-        return ClosedLoopLog(
-            states=lanes_first(states),
-            controls=lanes_first(controls),
-            torques=lanes_first(torques),
-            hl_variables=lanes_first(hl),
-            tra_times=tra_times,
-            abs_tra_times=tra_times + times,
-            times=times.expand(B, steps).contiguous(),
-            pitches=pitch0[:, None] + w_rot * times,
-            gate_moves=moves,
-            solver_iters=lanes_first(iters),
-            gate_vel_used=lanes_first(vel_used),
-        )
+        with spans.host("flight.finish"):
+            times = torch.arange(steps, **kw) * plant_dt
+            lanes_first = lambda a: a.transpose(0, 1).contiguous()
+            tra_times = lanes_first(tra_times)
+            return ClosedLoopLog(
+                states=lanes_first(states),
+                controls=lanes_first(controls),
+                torques=lanes_first(torques),
+                hl_variables=lanes_first(hl),
+                tra_times=tra_times,
+                abs_tra_times=tra_times + times,
+                times=times.expand(B, steps).contiguous(),
+                pitches=pitch0[:, None] + w_rot * times,
+                gate_moves=moves,
+                solver_iters=lanes_first(iters),
+                gate_vel_used=lanes_first(vel_used),
+            )
 
     sim.captures = captures
     return sim

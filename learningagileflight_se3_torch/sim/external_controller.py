@@ -43,6 +43,7 @@ from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 from learningagileflight_se3_torch.utils import graphs
 from learningagileflight_se3_torch.utils.device import resolve_device
+from learningagileflight_se3_torch.utils.profiling import spans
 
 # sign matrix A: maps rotor thrusts to the [T, tau] convention together
 # with diag([1, -l/2, l/2, -c])
@@ -137,7 +138,7 @@ class ExternalSimController:
         self._obs = torch.zeros(28, **kw)
         self.solution = None  # the last tick's MPC solution, on the device
         self.captures = graphs.Captures()
-        self._graph = None
+        self._graphs = {}  # the spans' state (utils/profiling.py) -> the tick's graph
         if self._graphed():
             self._capture()
 
@@ -146,18 +147,20 @@ class ExternalSimController:
 
     def _capture(self):
         """The tick's steps 2-5 as one CUDA graph over the carry and
-        observation buffers (the warm-up runs every block on copies).  It is
-        replayed once here, the carry kept: a graph's first launch uploads
-        it to the card, which is no tick's to pay."""
+        observation buffers (the warm-up runs every block on copies), kept
+        for the spans' state it was captured in.  It is replayed once here,
+        the carry kept: a graph's first launch uploads it to the card, which
+        is no tick's to pay.  Returns the graph."""
         self._obs_host = torch.zeros(28, dtype=self.dtype, pin_memory=True)
         carry = (self._u_dev, self._U_dev)
-        self._graph = self.captures.capture(
+        g = self._graphs[spans.on] = self.captures.capture(
             lambda: self._write(*self._device_step(self._obs, *carry, drive="chain")),
             warmup=lambda: self._device_step(self._obs, *(c.clone() for c in carry), drive="blocks"))
         kept = [c.clone() for c in carry]
-        self._graph.replay()
+        g.replay()
         for c, k in zip(carry, kept):
             c.copy_(k)
+        return g
 
     def _write(self, packed, u, U, sol):
         """Write a step's control and plan into the carry; (packed, sol)."""
@@ -199,12 +202,12 @@ class ExternalSimController:
              np.asarray(velo, dtype=np.float64)]
         )
         if self._graphed():
-            if self._graph is None:  # made under the watchers
-                self._capture()
+            # none yet: made under the watchers, or in the other spans' state
+            g = self._graphs.get(spans.on) or self._capture()
             self._obs_host.copy_(torch.from_numpy(obs))
             self._obs.copy_(self._obs_host, non_blocking=True)
-            self._graph.replay()
-            packed, self.solution = self._graph.out
+            g.replay()
+            packed, self.solution = g.out
         else:
             self._obs.copy_(torch.as_tensor(obs, dtype=self.dtype))
             packed, self.solution = self._write(*self._device_step(self._obs, self._u_dev, self._U_dev))

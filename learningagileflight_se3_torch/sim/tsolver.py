@@ -31,6 +31,7 @@ import torch
 
 from learningagileflight_se3_torch.geometry.gate import rotate_y, translate, window_inputs
 from learningagileflight_se3_torch.utils import graphs
+from learningagileflight_se3_torch.utils.profiling import spans
 
 # Iterations per conditional block.  A fixed point that ends inside a block
 # runs the rest of that block as gated no-ops, and each block costs the
@@ -141,12 +142,18 @@ class TraversalTimeSolver:
         w = w.to(**kw).expand(shape) if torch.is_tensor(w) else torch.full(shape, float(w), **kw)
         return state, final_point, gate_pts, velo, w
 
+    def _key(self, args):
+        """A captured fixed point's key: the arguments' shapes, dtype and
+        device, where DNN2's parameters lie now (values written in place
+        are seen; parameters that moved get a new graph) and the spans'
+        state (utils/profiling.py: a graph captured with spans on is never
+        replayed with them off, nor the other way)."""
+        return (tuple(a.shape for a in args) + (args[0].dtype, args[0].device, spans.on)
+                + tuple(p.data_ptr() for p in self.model2.parameters()))
+
     def _graph(self, args):
-        """The captured fixed point for arguments of these shapes, dtype and
-        device and for DNN2's parameters where they lie now (values written
-        in place are seen; parameters that moved get a new graph)."""
-        key = (tuple(a.shape for a in args) + (args[0].dtype, args[0].device)
-               + tuple(p.data_ptr() for p in self.model2.parameters()))
+        """The captured fixed point for arguments of this `_key`."""
+        key = self._key(args)
         if key not in self._graphs:
             static = [a.clone() for a in args]
             self._graphs[key] = static, self.captures.capture(

@@ -66,6 +66,14 @@ It runs in one of three ways:
 `run_blocks` is the graph loop's schedule without the capture, and
 `run_chain(..., drive="blocks")` the chain's, so the CPU tests hold the
 captured code bit for bit against the eager loop.
+
+With utils/profiling.py's spans on, a solve records the device spans
+"solve.setup", "solve.block" (each block of GRAPH_BLOCK iterations, in the
+captured block and in each conditional body of a chain), "solve.copy_in",
+"solve.copy_out" (the graph's static buffers) and "solve.solution", and
+host spans of the same names with "solve.launch" (a block's replay) and
+"solve.read" (the wait for a block's flag).  Graphs captured with spans on
+and off are kept apart.
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ from learningagileflight_se3_torch.solver.analytic import (
 from learningagileflight_se3_torch.solver.ilqr import MPCSolution
 from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, parallel_backward
 from learningagileflight_se3_torch.utils import graphs
+from learningagileflight_se3_torch.utils.profiling import spans
 
 NX = 13
 NU = 4
@@ -420,8 +429,9 @@ class BatchedSolver:
 
     def run_block(self, s: SolveState, p: Problem, k: int) -> SolveState:
         """k gated iterations with no host sync: what a graph captures."""
-        for _ in range(k):
-            s = self.iteration(s, p, live_any(s))
+        with spans.device("solve.block", s.J.device):
+            for _ in range(k):
+                s = self.iteration(s, p, live_any(s))
         return s
 
     def run_eager(self, s: SolveState, p: Problem, cap: int) -> SolveState:
@@ -440,7 +450,8 @@ class BatchedSolver:
         the carry `s` written in place), or each run ("blocks", the CPU's
         check of what the chain captures); no host read either way."""
         body = lambda st, go: self.iteration(st, p, go)  # noqa: E731
-        return graphs.while_blocks(s, live_any, body, GRAPH_BLOCK, -(-cap // GRAPH_BLOCK), drive)
+        return graphs.while_blocks(s, live_any, body, GRAPH_BLOCK, -(-cap // GRAPH_BLOCK), drive,
+                                   span="solve.block")
 
     def run_blocks(self, s: SolveState, p: Problem, cap: int, k: Optional[int] = None) -> SolveState:
         """The graph loop's schedule with the blocks run in place of the
@@ -480,7 +491,7 @@ class BatchedSolver:
 
     @staticmethod
     def _key(s: SolveState):
-        return s.J.shape[0], s.J.dtype, s.J.device
+        return s.J.shape[0], s.J.dtype, s.J.device, spans.on
 
     def run_graph(self, s: SolveState, p: Problem, cap: int) -> SolveState:
         """The loop as replays of a captured block of GRAPH_BLOCK
@@ -490,20 +501,25 @@ class BatchedSolver:
         g = self._graphs.get(key)
         if g is None:
             g = self._graphs[key] = self._capture(s, p)
-        for dst, src in zip((*g.state, *g.problem), (*s, *p)):
-            dst.copy_(src)
+        device = s.J.device
+        with spans.host("solve.copy_in"), spans.device("solve.copy_in", device):
+            for dst, src in zip((*g.state, *g.problem), (*s, *p)):
+                dst.copy_(src)
 
         def queue(n):
-            g.graph.replay()
-            g.pinned[n % 2].copy_(g.flag, non_blocking=True)
-            g.events[n % 2].record()
+            with spans.host("solve.launch"):
+                g.graph.replay()
+                g.pinned[n % 2].copy_(g.flag, non_blocking=True)
+                g.events[n % 2].record()
 
         def read(n):
-            g.events[n % 2].synchronize()
-            return graphs.read(g.pinned[n % 2])
+            with spans.host("solve.read"):
+                g.events[n % 2].synchronize()
+                return graphs.read(g.pinned[n % 2])
 
         _schedule(-(-cap // GRAPH_BLOCK), queue, read)
-        return SolveState(*(t.clone() for t in g.state))
+        with spans.host("solve.copy_out"), spans.device("solve.copy_out", device):
+            return SolveState(*(t.clone() for t in g.state))
 
     def _capture(self, s: SolveState, p: Problem) -> _Graph:
         """Capture one block into a CUDA graph on static copies of (s, p).
@@ -564,13 +580,15 @@ class BatchedSolver:
         device = torch.as_tensor(x0).device
         if drive is None:
             drive = graphs.drive(device) if self.graphed(device) else "eager"
-        s, p, cap = self.setup(x0, u_last, goal_pos, tra_pos, tra_ang, t, U_init, max_iters)
+        with spans.host("solve.setup"), spans.device("solve.setup", device):
+            s, p, cap = self.setup(x0, u_last, goal_pos, tra_pos, tra_ang, t, U_init, max_iters)
         if drive == "eager":
-            return self.solution(self.run_eager(s, p, cap))
-        with torch.no_grad():
-            if drive == "graph":
-                return self.solution(self.run_graph(s, p, cap))
-            return self.solution(self.run_chain(s, p, cap, drive))
+            s = self.run_eager(s, p, cap)
+        else:
+            with torch.no_grad():
+                s = self.run_graph(s, p, cap) if drive == "graph" else self.run_chain(s, p, cap, drive)
+        with spans.host("solve.solution"), spans.device("solve.solution", device):
+            return self.solution(s)
 
 
 def make_batched_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig,

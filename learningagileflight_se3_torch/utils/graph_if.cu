@@ -16,8 +16,17 @@
 //
 // The node runs its body when the condition is nonzero and skips it
 // otherwise; the handle has no default, so the kernel sets it at every
-// launch of the graph.  Each entry point returns 0 or the cudaError_t of
-// the first call that failed.
+// launch of the graph.
+//
+// `laf_stamp` launches a one-thread kernel on `stream` that reads the
+// card's nanosecond clock (%globaltimer) and writes (id, ns) into slot
+// atomicAdd(head, 1) of a ring of `cap` slots (utils/profiling.py `spans`).
+// Past `cap` it writes nothing but `head` keeps counting, so an overflow
+// shows.  Launched eagerly it stamps at once; on a stream that is capturing
+// it becomes a node of the graph, or of a conditional body.
+//
+// Each entry point returns 0 or the cudaError_t of the first call that
+// failed.
 
 #include <cuda_runtime.h>
 
@@ -25,6 +34,16 @@ namespace {
 
 __global__ void set_if_condition(cudaGraphConditionalHandle handle, const bool* pred) {
     cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+__global__ void laf_stamp_kernel(long long* buf, unsigned long long* head, long long cap, long long id) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    unsigned long long slot = atomicAdd(head, 1ull);
+    if (slot < static_cast<unsigned long long>(cap)) {
+        buf[2 * slot] = id;
+        buf[2 * slot + 1] = static_cast<long long>(ns);
+    }
 }
 
 }  // namespace
@@ -62,4 +81,10 @@ extern "C" int laf_if_begin(cudaStream_t outer, const void* pred, cudaStream_t b
 extern "C" int laf_if_end(cudaStream_t body) {
     cudaGraph_t graph;
     return cudaStreamEndCapture(body, &graph);
+}
+
+extern "C" int laf_stamp(void* buf, void* head, long long cap, long long id, cudaStream_t stream) {
+    laf_stamp_kernel<<<1, 1, 0, stream>>>(static_cast<long long*>(buf), static_cast<unsigned long long*>(head),
+                                          cap, id);
+    return cudaGetLastError();
 }

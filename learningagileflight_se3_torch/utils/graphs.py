@@ -40,6 +40,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from learningagileflight_se3_torch.utils.profiling import spans
+
 host_reads = 0       # host reads of a device value by the loops (each waits for the card)
 eager_on_card = False  # set by solver/watch.py's watchers while they watch
 
@@ -222,20 +224,21 @@ def _pool_bytes(pools) -> int:
                if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
-def _block(carry, pred, body, k: int, count: Optional[torch.Tensor]):
-    """k gated iterations: each computes its own `go`."""
-    if count is not None:
-        count[0].add_(1)
-    for _ in range(k):
-        go = pred(carry)
-        carry = body(carry, go)
+def _block(carry, pred, body, k: int, count: Optional[torch.Tensor], span: Optional[str]):
+    """k gated iterations: each computes its own `go`; a device span `span` around them."""
+    with spans.device(span, carry[0].device) if span else contextlib.nullcontext():
         if count is not None:
-            count[1].add_(go)
+            count[0].add_(1)
+        for _ in range(k):
+            go = pred(carry)
+            carry = body(carry, go)
+            if count is not None:
+                count[1].add_(go)
     return carry
 
 
 def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
-                 count: Optional[torch.Tensor] = None):
+                 count: Optional[torch.Tensor] = None, span: Optional[str] = None):
     """The capped loop `while pred(carry): carry = body(carry, go)`.
 
     carry: a tuple (or NamedTuple) of tensors; pred(carry) -> 0-dim bool on
@@ -247,7 +250,9 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
     chain: the bodies write into them, a field that shares another's
     buffer into a clone of its own).  count, an int32 (2,) tensor on the
     device, adds [blocks run, iterations with go True] (no blocks under
-    "eager").  Returns the final carry."""
+    "eager").  span: the name of a device span (utils/profiling.py `spans`)
+    around each block run, inside its conditional body under "chain".
+    Returns the final carry."""
     if drive == "eager":
         while True:
             go = pred(carry)
@@ -258,7 +263,7 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
                 count[1].add_(1)
     if drive == "blocks":
         for _ in range(n_blocks):
-            carry = _block(carry, pred, body, k, count)
+            carry = _block(carry, pred, body, k, count, span)
         return carry
     if drive != "chain":
         raise ValueError(f"unknown drive: {drive!r}")
@@ -270,7 +275,7 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
     carry = carry._make(fields) if hasattr(carry, "_make") else tuple(fields)
     for _ in range(n_blocks):
         with if_node(pred(carry)):
-            out = _block(carry, pred, body, k, count)
+            out = _block(carry, pred, body, k, count, span)
             for dst, src in zip(carry, out):
                 if dst is not src:
                     dst.copy_(src)
