@@ -11,8 +11,8 @@ data-parallel RL, the two ablation scripts, the card's f64 solve
 against the host's lifted-NLP oracle, the benchmarks
 (learningagileflight_se3_torch/benchmarks/), the solver's loop as a
 replayed CUDA graph against its eager host loop, and the flight loop (the
-t-solver, the tick and the closed loop as CUDA graphs of conditional
-blocks) against its eager drives, and fails (non-zero exit, no result line)
+t-solver as one kernel, K4; the tick and the closed loop as CUDA graphs of
+conditional blocks) against its eager drives, and fails (non-zero exit, no result line)
 if any phase fails or if there is no CUDA device.  Imports nothing of JAX.
 
 Phases, each printing its numbers on lines of its own:
@@ -206,13 +206,16 @@ Phases, each printing its numbers on lines of its own:
   19 flight loop  the JAX package's device loops around the solver as CUDA
              graphs whose loops are chains of conditional IF nodes
              (utils/graphs.py; the tick and the flights of phases 6, 9 and
-             16 run this way too): (a) the t-solver's graph against its
-             eager loop on the card, on the contract's ticks (B=1, both
-             accels) and the first 50 steps' arguments of seed 2024's flight
-             (B=128, "reference", tol 1e-3), f32 and f64: t and iterations
-             equal, host reads (gate 0), iterations and DNN2 evaluations
-             per solve (p50, p90, max) and the conditional blocks run, from
-             the device counter, times in turns; (b) the tick as one graph
+             16 run this way too), the t-solver's one kernel (K4): (a) K4
+             against the t-solver's eager loop on the card, on the
+             contract's ticks (B=1, both accels) and the first 50 steps'
+             arguments of seed 2024's flight (B=128, "reference", tol
+             1e-3), f32 and f64: t (f64 within 1e-9 with the same
+             iterations, f32 within 1e-3), host reads (gate 0), iterations
+             and lane-iterations per solve from the device counters; K4's
+             time alone (after a spin, median of 20) at B=128 f32
+             "reference" and at B=1 f32 "secant", its bound and the eager
+             loop's time (host clock, synced, best of 3); (b) the tick as one graph
              against the tick run eagerly on the card (the watchers' drive),
              the f64 replay contract (wrench 1e-4, t 1e-6) and the deployed
              budget in f32: actions and t equal, one host read a tick, p50 /
@@ -247,8 +250,9 @@ the main path; `launches_by_path` each path's own, "solve_bench" the whole
 solve bench's, "entry" one call of the flagship forward step, the tick's and
 the flights' with the launches of their conditional bodies, which the
 device ledger counts (utils/graphs.py settle); `bound_ms`
-the least time the card could take at B=2048, `library_ms` null: no
-single PyTorch call computes these functions), the nvidia-smi line
+the least time the card could take at B=2048, K4's at the flight's first
+step (B=128, phase 19), `library_ms` null: no single PyTorch call computes
+these functions), the nvidia-smi line
 and {"ok": true, "device": {...}}.  Every time is printed with the card's
 nvidia-smi name and power limit.
 
@@ -295,6 +299,10 @@ F32_FLOPS_PER_S = 67e12
 # the iterate, and the kernels stop there).  K3: K2's, with dense products in place of the
 # block-sparse ones (M and Qzz 9.8k each, B^T Vzz and Quz 2.3k each).
 K1_FLOPS, K2_FLOPS, K3_FLOPS = 420, 13_000, 35_600
+# K4, per DNN2 evaluation of a lane: layers 1 and 2 (2 x 128 x (18 + 128)),
+# output 6 (2 x 128), the biases and ReLUs (about 512) and the window
+# geometry (about 300, its sin, cos, atan and square roots one each).
+K4_FLOPS = 2 * 128 * (18 + 128) + 2 * 128 + 512 + 300
 # Times of the one-thread-per-scenario kernels that K1 and K2 replaced, f32,
 # H=50 (PERF.md section 6: CUDA events around the wrapper, the host's
 # enqueue included; B=1 from a torch.profiler trace of the tick)
@@ -676,22 +684,24 @@ def spans_check():
 def reset_launches():
     """Set the launch count of every kernel wrapper to 0 (the launches that
     conditional graph bodies made on the card before now included)."""
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
+    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
-    rollout.launches = riccati_fused.launches = riccati_unfused.launches = 0
+    rollout.launches = riccati_fused.launches = riccati_unfused.launches = tsolve.launches = 0
 
 
 def read_launches():
-    """{"K1": n, "K2": n, "K3": n}: each kernel wrapper's launch count, with
-    the launches that conditional graph bodies made on the card (the device
-    ledger, utils/graphs.py settle: one host read, after the path)."""
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
+    """{"K1": n, "K2": n, "K3": n, "K4": n}: each kernel wrapper's launch
+    count, with the launches that conditional graph bodies made on the card
+    (the device ledger, utils/graphs.py settle: one host read, after the
+    path)."""
+    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
-    return dict(K1=rollout.launches, K2=riccati_fused.launches, K3=riccati_unfused.launches)
+    return dict(K1=rollout.launches, K2=riccati_fused.launches, K3=riccati_unfused.launches,
+                K4=tsolve.launches)
 
 
 def read_plain_calls():
@@ -776,7 +786,7 @@ class Smoke:
 
     # ------------------------------------------------------------- 2 build
     def build(self):
-        from learningagileflight_se3_torch.ops import build, riccati_unfused, rollout
+        from learningagileflight_se3_torch.ops import build, riccati_unfused, rollout, tsolve
 
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
@@ -791,6 +801,8 @@ class Smoke:
             f"f64 {rollout.ring_bytes(torch.float64)} B")
         log(f"K3 ring and working set (dynamic shared memory per block): f32 "
             f"{riccati_unfused.smem_bytes(torch.float32)} B, f64 {riccati_unfused.smem_bytes(torch.float64)} B")
+        log(f"K4 lane, layer 1 and (f64) layer 2 (dynamic shared memory per block): f32 "
+            f"{tsolve.smem_bytes(torch.float32)} B, f64 {tsolve.smem_bytes(torch.float64)} B")
 
     # ----------------------------------------------------------- 3 kernels
     def kernels_vs_plain(self):
@@ -897,11 +909,13 @@ class Smoke:
         plain0 = read_plain_calls()
         reset_launches()
         out = solve.run("cuda")
-        self.path_launches["solve_bench"] = read_launches()
+        bench = self.path_launches["solve_bench"] = read_launches()
         rep = out["launches"]["sync_rep"]  # one synced solve at the bench config: the main path
-        self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=0)
+        # the bench counts K1 and K2 a rep; K3 and K4 a rep are at most the whole bench's, checked 0 below
+        self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=bench["K3"], K4=bench["K4"])
         print(json.dumps(out), flush=True)
         self.check(min(n["K1"], n["K2"]) > 0, f"phase 4 kernel launches {n}")
+        self.check(bench["K3"] == bench["K4"] == 0, f"phase 4: the solve bench launched K3 or K4 {bench}")
         self.check(read_plain_calls() == plain0 and rep["K1_plain"] == rep["K2_plain"] == 0,
                    "phase 4 moved a plain-version counter")
         q, cert = out["frac_within_1pct_of_converged"], out["certified_tier"]["frac_within_1pct"]
@@ -1976,7 +1990,7 @@ class Smoke:
                                          dtype=torch.float32, scratch_dir=scratch)
             k1 = sum(l[0] for r in report.values() for l in r["launches"])
             k2 = sum(l[1] for r in report.values() for l in r["launches"])
-            self.path_launches[f"sharded_rl_{backend}_{n}"] = dict(K1=k1, K2=k2, K3=0)
+            self.path_launches[f"sharded_rl_{backend}_{n}"] = dict(K1=k1, K2=k2)
             for mode, r in report.items():
                 log(f"multi-process RL: {n} {backend} rank(s), {256 // n} lanes each, {mode}: sharded step "
                     f"{', '.join(f'{x:.3f}' for x in r['sharded_s'])} s (each rank, synced), unsharded step "
@@ -2147,8 +2161,7 @@ class Smoke:
         out = scaling.run("cuda", cpu_rows=False, modes=("solve",), log_dir=os.path.join(REPO, "build", "smoke"))
         print(json.dumps(out), flush=True)
         ranks = [r for run in out["launches"].values() for r in run]
-        self.path_launches["bench_scaling"] = dict(K1=sum(r["K1"] for r in ranks), K2=sum(r["K2"] for r in ranks),
-                                                   K3=0)
+        self.path_launches["bench_scaling"] = dict(K1=sum(r["K1"] for r in ranks), K2=sum(r["K2"] for r in ranks))
         log(f"bench_scaling: {out['solves_per_sec']} solves/s by card count, one process against two gloo ranks "
             f"on the card {out['multiprocess_card']}, in {time.perf_counter() - t0:.1f} s; the ranks' launches "
             f"{self.path_launches['bench_scaling']} [{self.smi}]")
@@ -2375,14 +2388,15 @@ class Smoke:
         self._flight_loop_run_chain()
 
     def _flight_loop_tsolver(self):
-        """(a) the t-solver's graph against its eager loop, bit for bit: the
-        tick's arguments (B=1, the contract's ticks, both accels) and the
-        first 50 steps' of seed 2024's flight (B=128, "reference", tol 1e-3),
-        f32 and f64; host reads, iterations from the device counter, times."""
+        """(a) the t-solver's K4 against its eager loop on the card: the tick's
+        arguments (B=1, the contract's ticks, both accels) and the first 50
+        steps' of seed 2024's flight (B=128, "reference", tol 1e-3), f32 and
+        f64; host reads, iterations and lane-iterations from the device
+        counters; K4's time alone at B=128 ("reference") and B=1 ("secant")."""
         from learningagileflight_se3_torch.sim.bench import flight_solver_config
         from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
         from learningagileflight_se3_torch.sim.external_controller import euler_rates_to_body, quat_xyzw_to_wxyz
-        from learningagileflight_se3_torch.sim.tsolver import TSOLVE_BLOCK, make_traversal_time_solver
+        from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
         from learningagileflight_se3_torch.utils import graphs
         from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
 
@@ -2403,50 +2417,62 @@ class Smoke:
         cases = [(f"B=1 tick, {accel}", accel, float(z["fixed_point_tol"]), tick_args) for accel in ("reference", "secant")]
         cases.append(("B=128 flight, reference", "reference", 1e-3, flight_args))
         for what, accel, tol, arg_sets in cases:
-            for dtype in (torch.float32, torch.float64):
+            for dtype, atol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
                 solver = make_traversal_time_solver(load_dnn2().to(device="cuda", dtype=dtype), tol=tol, accel=accel)
-                solver.count = torch.zeros(2, dtype=torch.int32, device="cuda")
-                unequal, reads, iters, blocks = 0, 0, [], []
+                solver.count, solver.fused = (torch.zeros(2, dtype=torch.int32, device="cuda") for _ in range(2))
+                bad, reads, iters, lane_iters, err = 0, 0, [], [], 0.0
                 for args in arg_sets:
                     args = [a.to(device="cuda", dtype=dtype) for a in args]
                     solver.count.zero_()
                     eager = solver(*args, drive="eager")
                     n_it = solver.count.tolist()[1]
-                    solver(*args)  # the first call of a shape captures (its warm-up counts too)
                     solver.count.zero_()
+                    solver.fused.zero_()
                     n = graphs.host_reads
-                    graph = solver(*args)
+                    t = solver(*args)
                     reads += graphs.host_reads - n
-                    c = solver.count.tolist()
-                    unequal += int(not torch.equal(graph, eager) or c[1] != n_it)
+                    c, f = solver.count.tolist(), solver.fused.tolist()
+                    e = float(torch.nan_to_num(t - eager, nan=0.0).abs().max())
+                    err = max(err, e)
+                    bad += int(e > atol or not torch.equal(t.isnan(), eager.isnan()) or f[0] != 1 or c[0] != 0
+                               or (dtype == torch.float64 and c[1] != n_it))
                     iters.append(c[1])
-                    blocks.append(c[0])
-                it = np.asarray(iters)
-                per_iter, seeds = (1, 1) if accel == "reference" else (2, 2)
-                ev = seeds + per_iter * it
-                line = (f"flight loop t-solver {what} {str(dtype)[6:]}: graph equal to eager in "
-                        f"{len(arg_sets) - unequal} of {len(arg_sets)} solves (t and iterations); host reads a "
-                        f"graph solve {reads / len(arg_sets):.2f}; iterations p50 {np.percentile(it, 50):.1f} "
-                        f"p90 {np.percentile(it, 90):.1f} max {it.max()} (cap {solver.max_iters}), DNN2 evaluations "
-                        f"p50 {np.percentile(ev, 50):.1f} p90 {np.percentile(ev, 90):.1f} max {ev.max()}; conditional "
-                        f"blocks run p50 {np.percentile(blocks, 50):.1f} of {solver.n_blocks} (block "
-                        f"{TSOLVE_BLOCK}), gated no-op iterations {int(np.sum(np.asarray(blocks) * TSOLVE_BLOCK - it))} "
-                        f"of {int(np.sum(np.asarray(blocks) * TSOLVE_BLOCK))}; captures {solver.captures.count} in "
-                        f"{solver.captures.seconds:.3f} s")
-                if dtype == torch.float32:  # times in turns on the first arguments, best of 3
+                    lane_iters.append(f[1])
+                it, lanes = np.asarray(iters), np.asarray(lane_iters)
+                B = arg_sets[0][0].reshape(-1, 13).shape[0]
+                line = (f"flight loop t-solver {what} {str(dtype)[6:]}: K4 within {atol:g} of the eager loop "
+                        f"(with its iterations in f64) in {len(arg_sets) - bad} of {len(arg_sets)} solves, max "
+                        f"|t - eager| {err:.3e}; host reads a K4 solve {reads / len(arg_sets):.2f}; iterations p50 "
+                        f"{np.percentile(it, 50):.1f} p90 {np.percentile(it, 90):.1f} max {it.max()} (cap "
+                        f"{solver.max_iters}); lane-iterations a lane {lanes.sum() / (B * len(arg_sets)):.2f}")
+                timed = (dtype == torch.float32 and (accel, B) in (("reference", 128), ("secant", 1)))
+                if timed:  # the first arguments: K4 alone, and the eager loop for the plain version
                     args = [a.to(device="cuda", dtype=dtype) for a in arg_sets[0]]
-                    times = {"eager": [], "graph": []}
-                    for kind in ("eager", "graph", "graph", "eager", "eager", "graph"):
+                    k_ms = median_ms(lambda: solver(*args), card_only=True)
+                    walls = []
+                    for _ in range(3):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
-                        solver(*args, drive="eager" if kind == "eager" else None)
+                        solver(*args, drive="eager")
                         torch.cuda.synchronize()
-                        times[kind].append((time.perf_counter() - t0) * 1e3)
-                    line += (f"; time a solve (first arguments, {iters[0]} iterations, host clock, synced, best of "
-                             f"3) eager {min(times['eager']):.3f} ms, graph {min(times['graph']):.3f} ms")
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    seeds, per_iter = (1, 1) if accel == "reference" else (2, 2)
+                    solver.fused.zero_()
+                    solver(*args)
+                    evals = seeds * B + per_iter * solver.fused.tolist()[1]
+                    params = sum(p.numel() for p in solver.model2.parameters())
+                    b_ms, b_by = bound(args[:4] + [torch.empty(params, device="cuda")], [torch.empty(B)],
+                                       K4_FLOPS * evals)
+                    line += (f"; time a solve (first arguments, {iters[0]} iterations, at most {evals} DNN2 "
+                             f"evaluations) K4 {k_ms:.4f} ms (the card's time, median of {N_TIMED}), bound "
+                             f"{b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of it reached; eager loop "
+                             f"{min(walls):.3f} ms (host clock, synced, best of 3)")
+                    if B == 128:
+                        self.kernels["K4"] = dict(max_abs_err=err, ms=k_ms, plain_ms=min(walls), bound_ms=b_ms,
+                                                  bound_by=b_by, library_ms=None)
                 log(line + f" [{self.smi}]")
-                self.check(unequal == 0, f"phase 19 t-solver {what} {dtype}: {unequal} solves differ from eager")
-                self.check(reads == 0, f"phase 19 t-solver {what} {dtype}: {reads} host reads in graph solves")
+                self.check(bad == 0, f"phase 19 t-solver {what} {dtype}: {bad} solves differ from eager")
+                self.check(reads == 0, f"phase 19 t-solver {what} {dtype}: {reads} host reads in K4 solves")
 
     def _flight_loop_tick(self):
         """(b) the tick graph against the tick run eagerly on the card: the f64
@@ -2674,7 +2700,7 @@ def drive(s, only):
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)
-    if s.failures or (only is None and len(s.kernels) != 3):
+    if s.failures or (only is None and len(s.kernels) != 4):
         log(f"chip_smoke FAILED: {s.failures}")
         return 1
     if only is not None:
@@ -2682,8 +2708,9 @@ def drive(s, only):
         return 0
     # `launches` is the main path's count (one synced solve of phase 4's
     # bench), K3's is phase 7's (it is on no path); `launches_by_path` has each path's own count,
-    # the counters set to 0 just before that path and read just after
-    by_path = lambda k: {path: n[k] for path, n in s.path_launches.items()}
+    # the counters set to 0 just before that path and read just after (the spawned ranks report
+    # K1 and K2 only, so their paths have no K3 or K4 entry)
+    by_path = lambda k: {path: n[k] for path, n in s.path_launches.items() if k in n}
     src = "learningagileflight_se3_torch/csrc/"
     rows = [
         dict(name="K1 rollout_forward", route="cuda", source=src + "rollout.cu",
@@ -2698,6 +2725,9 @@ def drive(s, only):
              replaces="learningagileflight_se3_tpu/ops/riccati_pallas.py:364",
              launches=s.k3_launches, launches_by_path={**by_path("K3"), "phase 7": s.k3_launches},
              **s.kernels["K3"]),
+        dict(name="K4 traversal_time", route="cuda", source=src + "tsolve.cu",
+             replaces=None, launches=s.path_launches["solve"]["K4"], launches_by_path=by_path("K4"),
+             **s.kernels["K4"]),
     ]
     print(json.dumps({"kernels": rows}))
     print(s.smi)

@@ -7,9 +7,10 @@ runs at first use, keyed on a hash of the sources and flags, into
 therefore builds everything on its first kernel launch.  Nothing here runs
 at import time, so the CPU tests import this module without nvcc.
 
-Each C entry point takes the launch constants as a `KernelConsts` struct,
-the problem sizes, the tensors' device pointers and the CUDA stream, and
-returns `cudaGetLastError()` after the launch.
+Each C entry point of K1 to K3 takes the launch constants as a
+`KernelConsts` struct, the problem sizes, the tensors' device pointers and
+the CUDA stream; K4's takes its pointers, its numbers and the stream
+(`TSOLVE_ARGTYPES`).  Each returns `cudaGetLastError()` after the launch.
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ _ENTRY_POINTS = {
     "laf_riccati_fused_f32": 15, "laf_riccati_fused_f64": 15,
     "laf_riccati_unfused_f32": 18, "laf_riccati_unfused_f64": 18,
 }
+# K4's entry points (csrc/tsolve.cu): the lane inputs and DNN2's parameters
+# (11 pointers), tol, max_iters, secant, B, then t, count, fused, scratch and
+# the stream
+TSOLVE_ENTRY_POINTS = ("laf_tsolve_f32", "laf_tsolve_f64")
+TSOLVE_ARGTYPES = [_p] * 11 + [ctypes.c_double, _i, _i, _i] + [_p] * 4 + [_p]
 
 
 class KernelConsts(ctypes.Structure):
@@ -141,7 +147,10 @@ def library() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(KernelConsts), _i, _i] + [_p] * n_ptr + [_p]
         fn.restype = _i
-    for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes"):
+    for name in TSOLVE_ENTRY_POINTS:
+        getattr(lib, name).argtypes = TSOLVE_ARGTYPES
+        getattr(lib, name).restype = _i
+    for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes", "laf_tsolve_smem_bytes"):
         getattr(lib, name).argtypes = [_i]
         getattr(lib, name).restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)

@@ -13,7 +13,8 @@ drive:
 
 On the card the step is two CUDA graphs per batch size and observation
 noise, captured at the first flight: the hold step and the replan step
-(the `lax.cond`), each with its fixed point and its solve as chains of
+(the `lax.cond`), each with its fixed point as one node (K4,
+sim/tsolver.py) and, in the replan step, its solve as a chain of
 conditional blocks (utils/graphs.py), over one set of static buffers: the
 carry (state, control, warm start, DNN2's output, the Kalman state), the
 step's inputs and its outputs.  The host loop copies a step's gate row,
@@ -28,13 +29,15 @@ retires it by its regularisation blow-out, and no other lane reads it.
 
 With utils/profiling.py's spans on, a flight records the device spans
 "flight.step" (a step's work, first node to last), "flight.tsolve" (the
-fixed point with its conditional blocks) and "flight.replan" (the window
+fixed point: on the card K4's launch) and "flight.replan" (the window
 inputs, DNN2, the solve and the warm-start shift), and the host spans
 "flight.prepare" (the flight's inputs, gate motion and buffers),
 "flight.inputs" (a step's copies in), "flight.launch" (a step's replay, or
 its queuing in the host step loop), "flight.log" (a step's copies out) and
-"flight.finish"; the t-solver adds [blocks run, iterations] to the counter
-"flight.tsolve".  The step graphs of the two states are kept apart.
+"flight.finish"; the t-solver adds [0, iterations] to the counter
+"flight.tsolve" (on the card the batch's iterations are the largest lane
+count) and, on the card, [fixed points run, lane-iterations run] to the
+counter "tsolve.fused".  The step graphs of the two states are kept apart.
 """
 
 from __future__ import annotations
@@ -154,7 +157,9 @@ def make_closed_loop_sim(
     fixed point and solve on its own drive (their eager loops on the CPU,
     the solves' under the watchers too; their own graphs on the card), and
     "blocks" the step graphs' code run in place of their replays, every
-    conditional block run (the CPU's check of what the graphs capture).
+    conditional block of the solve run (the CPU's check of what the graphs
+    capture; the fixed point there is the t-solver's eager loop, as K4's
+    plain version).
     `sim.captures` holds the step graphs' captures.
 
     A scenario is the 9-dim vector (start, goal, yaw, gate width, gate pitch).
@@ -253,8 +258,9 @@ def make_closed_loop_sim(
     @torch.no_grad()
     def sim(scenarios, generator: Optional[torch.Generator] = None, gate_noise=None,
             obs_noise=None, drive=None):
-        # the counter is made before any capture that adds to it
+        # the counters are made before any capture that adds to them
         tsolve.count = spans.counter("flight.tsolve", device) if spans.on else None
+        tsolve.fused = spans.counter("tsolve.fused", device) if spans.on else None
         with spans.host("flight.prepare"):
             kw = dict(dtype=dtype, device=device)
             on_device = lambda a: None if a is None else torch.as_tensor(a).to(**kw)

@@ -17,11 +17,12 @@ fetches one 9-value packet.  The query is solved as a batch of one (the JAX
 tile of 128 or 8 rows is a TPU layout fix the kernels do not need).
 
 On the card steps 2-5 are one CUDA graph, captured at construction: the
-fixed point's and the solve's loops are chains of conditional blocks
-(utils/graphs.py), so a tick is one copy of the observation from pinned
-memory, one replay and the packet's fetch, its only host read.  On the
-CPU, and on the card under solver/watch.py's watchers, the same step runs
-eagerly, its loop tests host reads.
+fixed point is one kernel (K4, sim/tsolver.py) and the solve's loop a
+chain of conditional blocks (utils/graphs.py), so a tick is one copy of
+the observation from pinned memory, one replay and the packet's fetch,
+its only host read.  On the CPU, and on the card under solver/watch.py's
+watchers, the same step runs eagerly, the solve's loop tests host reads
+(on the card the fixed point is K4 there too).
 """
 
 from __future__ import annotations

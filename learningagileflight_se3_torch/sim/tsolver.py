@@ -7,20 +7,22 @@ fixed point per lane; the tick passes none).
 
 Each `while_loop` of the JAX version is a pure iteration on a carry,
 (t1, t2, live, it) for "reference" and (t0, g0, t1, g1, live, it) for
-"secant", driven by utils/graphs.py `while_blocks`: the loop runs while any
-lane is live and the batch's count `it` is under `max_iters`, and every
-update is gated by that test and by the lane's own `live`, so a lane that
-has converged keeps its t bit for bit, as under `jax.vmap`, an iteration
-past the exit changes nothing, and a lane whose state is not finite drops
-out of the test at once.  A batch's fixed point is held to its slowest
-lane: in chip_smoke.py's phase 19 on an H100 each of the first 50 steps of
-seed 2024's flight (B=128, tol 1e-3) ran to the cap of 100 iterations,
-while the replay contract's ticks (B=1, tol 1e-2) take 8 ("reference") or
-2 ("secant").  On the card the whole fixed point (the guess, the seed evaluations
-and ceil(max_iters / TSOLVE_BLOCK) conditional blocks) is one CUDA graph
-per shape, replayed with no host read; inside a capture that is open (the
-tick's, a flight step's) the blocks join it.  CPU tensors take the eager
-loop, a host read per iteration.
+"secant", run on the CPU as an eager loop, a host read of the test before
+each iteration: the loop runs while any lane is live and the batch's count
+`it` is under `max_iters`, and every update is gated by that test and by
+the lane's own `live`, so a lane that has converged keeps its t bit for
+bit, as under `jax.vmap`, and a lane whose state is not finite drops out
+of the test at once.  A batch's fixed point is held to its slowest lane: the flight's
+(B=128, tol 1e-3) run 75 to 87 iterations a step, the replay contract's
+ticks (B=1, tol 1e-2) 8 ("reference") or 2 ("secant").
+
+On the card the whole fixed point (the guess, the seed evaluations, every
+iteration and the test) is one launch of K4 (ops/tsolve.py,
+csrc/tsolve.cu), one block a lane that loops while its lane is live and
+under the cap: the same result lane by lane, and the batch's count the
+largest lane count.  It is a plain launch on the current stream, so the
+tick's and a flight step's captures hold it as one node.  CPU tensors, and
+the card where a caller names the "eager" drive, take the eager loop.
 """
 
 from __future__ import annotations
@@ -30,15 +32,8 @@ from typing import NamedTuple
 import torch
 
 from learningagileflight_se3_torch.geometry.gate import rotate_y, translate, window_inputs
+from learningagileflight_se3_torch.ops import tsolve
 from learningagileflight_se3_torch.utils import graphs
-from learningagileflight_se3_torch.utils.profiling import spans
-
-# Iterations per conditional block.  A fixed point that ends inside a block
-# runs the rest of that block as gated no-ops, and each block costs the
-# card one test and one node even when it is skipped.  The flight's fixed
-# points run to the cap, where the block size only sets the number of nodes
-# (25); the tick's end within two blocks, at most 3 no-op iterations.
-TSOLVE_BLOCK = 4
 
 
 class _Reference(NamedTuple):
@@ -61,18 +56,19 @@ class TraversalTimeSolver:
     """solver(state (..., 13), final_point (..., 3), gate_pts (..., 4, 3),
     velo (..., 3), w: number or (...)) -> t (...); see the module's
     docstring.  `count`, where set to an int32 (2,) tensor on the solves'
-    device, adds [conditional blocks run, iterations] of every solve (set
-    it before the first solve of a shape on the card: a graph adds to the
-    tensor it was captured with)."""
+    device (a utils/profiling.py counter), adds [0, iterations] of every
+    solve; `fused`, likewise, adds [1, the lanes' iterations summed] of
+    every solve by K4.
+    Set both before a capture that holds a solve: a graph adds to the
+    tensors it was captured with."""
 
     def __init__(self, model2, tol: float, max_iters: int, accel: str):
         if accel not in ("reference", "secant"):
             raise ValueError(f"unknown accel: {accel!r}")
         self.model2, self.tol, self.max_iters, self.accel = model2, tol, max_iters, accel
-        self.n_blocks = -(-max_iters // TSOLVE_BLOCK)
         self.count = None
-        self.captures = graphs.Captures()
-        self._graphs = {}
+        self.fused = None
+        self._scratch = None  # K4's int32 (2,) scratch for `count`, on the solves' device
 
     def _predict(self, state, final_point, gate_pts, velo, w, t1):
         pts = rotate_y(translate(gate_pts, velo * t1[..., None]), w * t1)
@@ -129,11 +125,14 @@ class TraversalTimeSolver:
         return carry, body
 
     @torch.no_grad()
-    def run(self, state, final_point, gate_pts, velo, w, drive: str):
-        """The fixed point under `drive` ("eager", "blocks" or "chain"); w
-        as a tensor of t's shape."""
+    def run(self, state, final_point, gate_pts, velo, w):
+        """The eager loop's final carry; w as a tensor of t's shape."""
         carry, body = self.loop(state, final_point, gate_pts, velo, w)
-        return graphs.while_blocks(carry, self.pred, body, TSOLVE_BLOCK, self.n_blocks, drive, self.count).t1
+        while graphs.read(go := self.pred(carry)):
+            carry = body(carry, go)
+            if self.count is not None:
+                self.count[1].add_(1)
+        return carry
 
     def _args(self, state, final_point, gate_pts, velo, w):
         """The arguments with w as a tensor of t's shape (a number is filled
@@ -142,45 +141,34 @@ class TraversalTimeSolver:
         w = w.to(**kw).expand(shape) if torch.is_tensor(w) else torch.full(shape, float(w), **kw)
         return state, final_point, gate_pts, velo, w
 
-    def _key(self, args):
-        """A captured fixed point's key: the arguments' shapes, dtype and
-        device, where DNN2's parameters lie now (values written in place
-        are seen; parameters that moved get a new graph) and the spans'
-        state (utils/profiling.py: a graph captured with spans on is never
-        replayed with them off, nor the other way)."""
-        return (tuple(a.shape for a in args) + (args[0].dtype, args[0].device, spans.on)
-                + tuple(p.data_ptr() for p in self.model2.parameters()))
+    def kernel_args(self, state, final_point, gate_pts, velo, w):
+        """K4's tensors for a call's arguments: the lanes' state, goal,
+        corners, velocity and pitch rate (a number filled in) as (B, ...),
+        contiguous, in the dtype DNN2's layers compute in, then DNN2's
+        parameters in it."""
+        state, final_point, gate_pts, velo, w = self._args(state, final_point, gate_pts, velo, w)
+        shape = state.shape[:-1]
+        dtype = torch.promote_types(state.dtype, next(self.model2.parameters()).dtype)
+        flat = lambda a, *tail: a.to(dtype).expand(shape + tail).reshape(-1, *tail).contiguous()  # noqa: E731
+        return ([flat(state, 13), flat(final_point, 3), flat(gate_pts, 4, 3), flat(velo, 3), flat(w)]
+                + tsolve.dnn2_params(self.model2, dtype))
 
-    def _graph(self, args):
-        """The captured fixed point for arguments of this `_key`."""
-        key = self._key(args)
-        if key not in self._graphs:
-            static = [a.clone() for a in args]
-            self._graphs[key] = static, self.captures.capture(
-                lambda: self.run(*static, drive="chain"), warmup=lambda: self.run(*static, drive="blocks"))
-        return self._graphs[key]
+    def _fused(self, state, final_point, gate_pts, velo, w):
+        """t (...) from K4."""
+        args = self.kernel_args(state, final_point, gate_pts, velo, w)
+        if self.count is not None and self._scratch is None:
+            self._scratch = torch.zeros(2, dtype=torch.int32, device=state.device)
+        t = tsolve.traversal_time(*args[:5], args[5:], self.tol, self.max_iters, self.accel == "secant",
+                                  self.count, self.fused, self._scratch)
+        return t.reshape(state.shape[:-1])
 
     def __call__(self, state, final_point, gate_pts, velo, w, drive=None):
-        """t (...); `drive` as `run`'s, or None: "eager" on the CPU, "chain"
-        inside an open capture, else the replay of this shape's graph (the
-        arguments copied in, t cloned out), under solver/watch.py's watchers
-        too: the fixed point launches none of the kernels they watch."""
-        args = self._args(state, final_point, gate_pts, velo, w)
-        drive = drive or graphs.drive(state.device, watched=False)  # it launches no K1 / K2
-        if drive != "graph":
-            return self.run(*args, drive=drive)
-        static, g = self._graph(args)
-        for dst, src in zip(static, args):
-            dst.copy_(src)
-        g.replay()
-        return g.out.clone()
-
-    def prepare(self, state, final_point, gate_pts, velo, w):
-        """Capture the graph for arguments of these shapes, dtype and device
-        now, so that the first solve does not pay for it (nothing to do for
-        CPU tensors)."""
-        if graphs.drive(state.device, watched=False) == "graph":
-            self._graph(self._args(state, final_point, gate_pts, velo, w))
+        """t (...); `drive` is the caller's (utils/graphs.py `drive`): on the
+        card every drive but "eager" launches K4, and the CPU takes the
+        eager loop whatever the drive."""
+        if state.device.type == "cuda" and drive != "eager":
+            return self._fused(state, final_point, gate_pts, velo, w)
+        return self.run(*self._args(state, final_point, gate_pts, velo, w)).t1
 
 
 def make_traversal_time_solver(model2, tol: float = 1e-3, max_iters: int = 100,

@@ -38,9 +38,10 @@ def watched_kernels(on_call):
     `args` and `kwargs` are the wrapper's own, `out` what it returned.
 
     A CUDA solve replays a captured graph, which makes no Python call, so
-    inside the block the solver, the t-solver, the tick and the closed loop
-    take their eager loops on the card too (`utils/graphs.py eager_on_card`,
-    set here and restored on exit): the host loops with a sync per DDP
+    inside the block the solver, the tick and the closed loop take their
+    eager loops on the card too (`utils/graphs.py eager_on_card`, set here
+    and restored on exit; the t-solver stays one kernel, K4, which launches
+    none of the kernels watched): the host loops with a sync per DDP
     iteration and line-search trip, the same kernels on the same inputs,
     but none of the gated trips a replay runs."""
     real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward

@@ -2,13 +2,14 @@
 
 The JAX package runs its loops on the device: the t-solver's two
 `lax.while_loop`s, the solver's DDP `while_loop` and the closed loop's
-`lax.scan` with a `lax.cond` replan.  Here a capped while loop is written
-once, as a pure iteration on a carry whose every update is gated by `go`
-(so an iteration with `go` False leaves the carry bit for bit as it was),
-and `while_blocks` drives it in one of three ways:
+`lax.scan` with a `lax.cond` replan (on the card the port runs the
+t-solver's as one kernel, sim/tsolver.py).  Here a capped while loop is
+written once, as a pure iteration on a carry whose every update is gated
+by `go` (so an iteration with `go` False leaves the carry bit for bit as
+it was); its owner's eager loop reads the loop test on the host before
+each iteration (the CPU, and the card while solver/watch.py's watchers
+watch), and `while_blocks` drives it with no host read in one of two ways:
 
-  * "eager": a host read of the loop test before each iteration (the CPU,
-    and the card while solver/watch.py's watchers watch);
   * "blocks": every block of k gated iterations runs, with no test at all:
     the CPU's check of exactly what a chain captures;
   * "chain": inside an open capture, one CUDA-graph conditional IF node per
@@ -45,7 +46,7 @@ from learningagileflight_se3_torch.utils.profiling import spans
 host_reads = 0       # host reads of a device value by the loops (each waits for the card)
 eager_on_card = False  # set by solver/watch.py's watchers while they watch
 
-_ledgers = {}        # device -> int64 (3,) launches made in conditional bodies, not yet settled
+_ledgers = {}        # device -> int64 (4,) launches made in conditional bodies, not yet settled
 _body_streams = {}   # device -> the stream that captures conditional bodies (and warms up)
 _body_pools = {}     # device -> the memory pool of the bodies' allocations
 
@@ -64,20 +65,19 @@ def fetch(t: torch.Tensor) -> torch.Tensor:
     return t.cpu()
 
 
-def drive(device, watched: bool = True) -> str:
+def drive(device) -> str:
     """The drive of a loop on `device` whose caller names none: "eager" on
-    the CPU, and while the watchers watch if the loop is `watched` (it
-    launches the kernels they watch), "chain" inside an open capture,
+    the CPU and while the watchers watch, "chain" inside an open capture,
     "graph" (the loop's own captured graph) otherwise."""
-    if torch.device(device).type != "cuda" or (eager_on_card and watched):
+    if torch.device(device).type != "cuda" or eager_on_card:
         return "eager"
     return "chain" if torch.cuda.is_current_stream_capturing() else "graph"
 
 
 def _wrappers():
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout
+    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
 
-    return rollout, riccati_fused, riccati_unfused
+    return rollout, riccati_fused, riccati_unfused, tsolve
 
 
 def _counts():
@@ -224,46 +224,30 @@ def _pool_bytes(pools) -> int:
                if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
-def _block(carry, pred, body, k: int, count: Optional[torch.Tensor], span: Optional[str]):
+def _block(carry, pred, body, k: int, span: Optional[str]):
     """k gated iterations: each computes its own `go`; a device span `span` around them."""
     with spans.device(span, carry[0].device) if span else contextlib.nullcontext():
-        if count is not None:
-            count[0].add_(1)
         for _ in range(k):
-            go = pred(carry)
-            carry = body(carry, go)
-            if count is not None:
-                count[1].add_(go)
+            carry = body(carry, pred(carry))
     return carry
 
 
-def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
-                 count: Optional[torch.Tensor] = None, span: Optional[str] = None):
+def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str, span: Optional[str] = None):
     """The capped loop `while pred(carry): carry = body(carry, go)`.
 
     carry: a tuple (or NamedTuple) of tensors; pred(carry) -> 0-dim bool on
     the carry's device, True while an iteration would change the carry (its
     cap included); body(carry, go) -> carry, one iteration with every update
     gated by `go`.  k * n_blocks must reach the loop's cap.  drive:
-    "eager", "blocks" or "chain" (see the module's docstring; "chain" only
-    while a capture is open, and its carry must be tensors made before the
-    chain: the bodies write into them, a field that shares another's
-    buffer into a clone of its own).  count, an int32 (2,) tensor on the
-    device, adds [blocks run, iterations with go True] (no blocks under
-    "eager").  span: the name of a device span (utils/profiling.py `spans`)
-    around each block run, inside its conditional body under "chain".
-    Returns the final carry."""
-    if drive == "eager":
-        while True:
-            go = pred(carry)
-            if not read(go):
-                return carry
-            carry = body(carry, go)
-            if count is not None:
-                count[1].add_(1)
+    "blocks" or "chain" (see the module's docstring; "chain" only while a
+    capture is open, and its carry must be tensors made before the chain:
+    the bodies write into them, a field that shares another's buffer into a
+    clone of its own).  span: the name of a device span (utils/profiling.py
+    `spans`) around each block run, inside its conditional body under
+    "chain".  Returns the final carry."""
     if drive == "blocks":
         for _ in range(n_blocks):
-            carry = _block(carry, pred, body, k, count, span)
+            carry = _block(carry, pred, body, k, span)
         return carry
     if drive != "chain":
         raise ValueError(f"unknown drive: {drive!r}")
@@ -275,7 +259,7 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str,
     carry = carry._make(fields) if hasattr(carry, "_make") else tuple(fields)
     for _ in range(n_blocks):
         with if_node(pred(carry)):
-            out = _block(carry, pred, body, k, count, span)
+            out = _block(carry, pred, body, k, span)
             for dst, src in zip(carry, out):
                 if dst is not src:
                     dst.copy_(src)

@@ -1,22 +1,23 @@
 """The flight loop's device-resident drives on the CPU.
 
-On the card the t-solver's two `while_loop`s, the solver's DDP loop inside
-a tick or a flight step, and the closed loop's 500-step `scan` run as CUDA
-graphs whose loops are chains of conditional blocks (utils/graphs.py
-`while_blocks`, drive "chain"): a block past a loop's exit is skipped on
-the device.  That is exact only because every update of an iteration is
-gated, so a block run past the exit leaves the carry bit for bit as it
-was.  Here, with no capture, the "blocks" drive runs every block of what
-the chains capture, and these tests hold it bit for bit against the eager
-loops (a host test before each iteration), in f64 at a small size: the
-t-solver (both accels; lanes that converge at different iterations, a lane
-that meets the cap, a lane whose state is not finite), a block run after
-the exit for the t-solver and the solver, and the closed loop's step graphs'
-code (B=4, 23 steps: three replans and a partial period, with and without
-the Kalman filter).  The Kalman step, whose gain is now the closed-form
-4x4 Cholesky, is held against the JAX filter to 1e-10.  The graphs
-themselves are tested on the card (tests/test_torch_gpu.py, chip_smoke.py
-phase 19).
+On the card the solver's DDP loop inside a tick or a flight step, and the
+closed loop's 500-step `scan`, run as CUDA graphs whose loops are chains of
+conditional blocks (utils/graphs.py `while_blocks`, drive "chain"): a
+block past a loop's exit is skipped on the device.  That is exact only
+because every update of an iteration is gated, so a block run past the
+exit leaves the carry bit for bit as it was.  Here, with no capture, the
+"blocks" drive runs every block of what the chains capture, and these
+tests hold it bit for bit against the eager loops (a host test before each
+iteration), in f64 at a small size: the solver's chain (cold and warm, the
+exit by tolerance and at the cap, a lane whose state is not finite, a
+block run after the exit) and the closed loop's step graphs' code (B=4, 23
+steps: three replans and a partial period, with and without the Kalman
+filter).  The t-solver's fixed point is one kernel on the card (K4) and
+its eager loop on the CPU under every drive: lanes that converge at
+different iterations, a lane that meets the cap, a lane whose state is not
+finite.  The Kalman step, whose gain is now the closed-form 4x4 Cholesky,
+is held against the JAX filter to 1e-10.  The graphs themselves are tested
+on the card (tests/test_torch_gpu.py, chip_smoke.py phase 19).
 """
 
 import numpy as np
@@ -32,7 +33,7 @@ from learningagileflight_se3_torch.config import CostWeights, QuadParams, Solver
 from learningagileflight_se3_torch.ops.inputs import bench_problems
 from learningagileflight_se3_torch.sim import estimator as kal
 from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
-from learningagileflight_se3_torch.sim.tsolver import TSOLVE_BLOCK, make_traversal_time_solver
+from learningagileflight_se3_torch.sim.tsolver import TraversalTimeSolver, make_traversal_time_solver
 from learningagileflight_se3_torch.solver import ilqr_batched
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 from learningagileflight_se3_torch.utils import graphs
@@ -80,16 +81,15 @@ TSOLVE_CASES = [("reference", 1e-6, 20), ("secant", 1e-9, 3)]
 
 @pytest.mark.parametrize("accel,tol,CAP", TSOLVE_CASES, ids=[c[0] for c in TSOLVE_CASES])
 def test_tsolver_blocks_equal_eager(accel, tol, CAP, dnn2):
-    """The blocks drive's every field, and the t it returns, equal to the
-    eager loop's; the iteration count of the device counter too.  The lanes
+    """On the CPU every drive a caller may name ("eager", the step graphs'
+    "blocks", none) runs the eager loop: the same t bit for bit, a host
+    read per loop test and [0, iterations] on the counter.  The lanes
     converge at different iterations, one meets the cap, lane 3 is NaN."""
     args = _tsolver_args()
     live_at = []  # per cap m, which lanes are still live after m iterations
     for m in range(CAP + 1):
         s = make_traversal_time_solver(dnn2, tol=tol, max_iters=m, accel=accel)
-        with torch.no_grad():
-            c, body = s.loop(*s._args(*args))
-            live_at.append(graphs.while_blocks(c, s.pred, body, TSOLVE_BLOCK, s.n_blocks, "eager").live)
+        live_at.append(s.run(*s._args(*args)).live)
     live_at = torch.stack(live_at)
     converged_at = [int((~live_at[:, i]).to(torch.int8).argmax()) for i in range(10) if not live_at[-1, i]]
     assert not live_at[0, 3], "the NaN lane is live"
@@ -97,48 +97,15 @@ def test_tsolver_blocks_equal_eager(accel, tol, CAP, dnn2):
     assert len(set(converged_at) - {0}) >= 2, f"lanes converge together: {converged_at}"
 
     solver = make_traversal_time_solver(dnn2, tol=tol, max_iters=CAP, accel=accel)
-    out = {}
-    for drive in ("eager", "blocks"):
+    end = solver.run(*solver._args(*args))
+    assert int(end.it) == CAP
+    for drive in ("eager", "blocks", None):
         solver.count = torch.zeros(2, dtype=torch.int32)
+        n = graphs.host_reads
         with torch.no_grad():
-            c, body = solver.loop(*solver._args(*args))
-            n = graphs.host_reads
-            out[drive] = graphs.while_blocks(c, solver.pred, body, TSOLVE_BLOCK, solver.n_blocks, drive,
-                                             solver.count)
-            out[drive + " reads"] = graphs.host_reads - n
-            out[drive + " t"] = solver(*args, drive=drive)
-        out[drive + " count"] = solver.count.clone()
-    assert _unequal(out["blocks"], out["eager"]) == []
-    assert _same(out["blocks t"], out["eager t"]) and _same(out["blocks t"], out["eager"].t1)
-    assert int(out["eager"].it) == CAP and out["blocks reads"] == 0 and out["eager reads"] == CAP + 1
-    # both solves of each drive counted: iterations alike, blocks only in the blocks drive
-    assert out["eager count"].tolist() == [0, 2 * CAP]
-    assert out["blocks count"].tolist() == [2 * solver.n_blocks, 2 * CAP]
-
-
-@pytest.mark.parametrize("accel", ["reference", "secant"])
-@pytest.mark.parametrize("exit_by", ["tolerance", "cap"])
-def test_tsolver_block_after_the_exit_is_a_no_op(accel, exit_by, dnn2):
-    """The property the IF node's skip rests on: one more block of gated
-    iterations after the loop's exit leaves every field of the carry as it
-    was, whether the loop ended because every lane converged or at the cap.
-    Ungated, an iteration past the exit would count one more iteration, and
-    at the cap move the live lanes."""
-    args = _tsolver_args()
-    args[0][3, 0] = 0.0
-    tol, cap = (1e-2, 100) if exit_by == "tolerance" else (1e-9, 2)
-    solver = make_traversal_time_solver(dnn2, tol=tol, max_iters=cap, accel=accel)
-    with torch.no_grad():
-        c, body = solver.loop(*solver._args(*args))
-        end = graphs.while_blocks(c, solver.pred, body, TSOLVE_BLOCK, solver.n_blocks, "eager")
-        assert not bool(solver.pred(end))
-        assert bool(end.live.any()) == (exit_by == "cap") and int(end.it) < cap + (exit_by == "cap")
-        again = graphs.while_blocks(end, solver.pred, body, TSOLVE_BLOCK, 1, "blocks")
-        ungated = body(end, torch.tensor(True))
-    assert _unequal(again, end) == []
-    assert int(ungated.it) == int(end.it) + 1
-    if exit_by == "cap":
-        assert not torch.equal(ungated.t1, end.t1)
+            t = solver(*args, drive=drive)
+        assert _same(t, end.t1), drive
+        assert graphs.host_reads - n == CAP + 1 and solver.count.tolist() == [0, CAP], drive
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -167,6 +134,44 @@ def test_solver_block_after_the_exit_is_a_no_op(warm):
     assert _unequal(sol, solver.solution(end)) == []
 
 
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("exit_by", ["tolerance", "cap"])
+def test_solver_chain_blocks_equal_eager(exit_by, warm):
+    """The chain's blocks drive (every conditional block of GRAPH_BLOCK
+    gated iterations run, no host read) against the eager loop on the
+    solver's body, every field bit for bit: the lanes end at different
+    iterations, lane 3's state is not finite, and the loop ends with every
+    lane out or at a cap that is no multiple of the block, so the last
+    block runs iterations past the cap.  One more block after the exit
+    changes nothing."""
+    solver = make_batched_mpc_solver(QuadParams(), CostWeights(),
+                                     SolverConfig(horizon=10, max_iters=30, tol=1e-4, gtol=3e-4,
+                                                  no_progress_iters=10, ls_max_trips=4, ls_adaptive=True))
+    args = list(bench_problems(6, "cpu", seed=5))
+    args[0] = args[0].clone()
+    args[0][3, 0] = float("nan")
+    U_init = None
+    if warm:
+        U = solver(*args).control_traj
+        U_init = torch.cat([U[:, 1:], U[:, -1:]], dim=1)
+    cap = 90 if exit_by == "tolerance" else 15
+    assert cap % ilqr_batched.GRAPH_BLOCK
+    end = solver.run_eager(*solver.setup(*args, U_init=U_init, max_iters=cap))
+    it = end.it.tolist()
+    assert len(set(it)) >= 2, f"the lanes end together: {it}"
+    # status 0: still running when the loop ended, so stopped by the cap
+    assert (max(it) == cap) == bool((end.st == 0).any()) == (exit_by == "cap"), (it, end.st.tolist())
+    assert not bool(torch.isfinite(end.J[3])) and bool(torch.isfinite(end.J[torch.arange(6) != 3]).all())
+    n = graphs.host_reads
+    chain = solver.run_chain(*solver.setup(*args, U_init=U_init, max_iters=cap), drive="blocks")
+    assert graphs.host_reads == n
+    assert _unequal(chain, end) == []
+    s, p, _ = solver.setup(*args, U_init=U_init, max_iters=cap)
+    again = graphs.while_blocks(chain, ilqr_batched.live_any, lambda st, go: solver.iteration(st, p, go),
+                                ilqr_batched.GRAPH_BLOCK, 1, "blocks")
+    assert _unequal(again, end) == []
+
+
 @pytest.fixture(scope="module")
 def flights(dnn2):
     """Seed 2024's first 4 exported scenarios for 23 steps (three replans and
@@ -175,27 +180,40 @@ def flights(dnn2):
     scen, noise = bench_scenarios(bench_scenarios_path(2024))
     scen, noise = scen[:4], noise[:4, :23]
     obs_noise = 0.01 * np.random.default_rng(11).normal(size=(4, 23, 4, 3))
-    out = {}
+    out, real, tsolve_reads = {}, TraversalTimeSolver.run, []
+
+    def spy(*a, **kw):  # the host reads of the t-solver's eager loops
+        n = graphs.host_reads
+        end = real(*a, **kw)
+        tsolve_reads.append((graphs.host_reads - n, int(end.it)))
+        return end
+
     for kalman in (False, True):
         sim = make_closed_loop_sim(dnn2, solver_cfg=SolverConfig(horizon=10, max_iters=10, tol=1e-4, gtol=3e-4,
                                                                  no_progress_iters=10),
                                    steps=23, estimate_gate_motion=kalman, device="cpu", dtype=torch.float64)
         for drive in ("eager", "blocks"):
             n = graphs.host_reads
-            log = sim(scen, gate_noise=noise, obs_noise=obs_noise if kalman else None, drive=drive)
-            out[kalman, drive] = log, graphs.host_reads - n
+            tsolve_reads.clear()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(TraversalTimeSolver, "run", spy)
+                log = sim(scen, gate_noise=noise, obs_noise=obs_noise if kalman else None, drive=drive)
+            out[kalman, drive] = log, graphs.host_reads - n, list(tsolve_reads)
     return out
 
 
 @pytest.mark.parametrize("kalman", [False, True], ids=["true velocity", "Kalman filter"])
 def test_closed_loop_blocks_equal_the_eager_step_loop(kalman, flights):
     """Every ClosedLoopLog field equal bit for bit: the step graphs' code
-    (static buffers, the hold and replan steps, every conditional block
-    run) against the eager step loop; the blocks drive reads nothing from
-    the card, the eager one at every loop test."""
-    (blocks, reads_b), (eager, reads_e) = flights[kalman, "blocks"], flights[kalman, "eager"]
+    (static buffers, the hold and replan steps, every conditional block of
+    the solves run) against the eager step loop; the blocks drive reads
+    from the card only at the loop tests of the fixed points (K4 on the
+    card, the eager loop here), one a step more than its iterations, the
+    eager drive at every loop test of the solves too."""
+    (blocks, reads_b, ts_b), (eager, reads_e, ts_e) = flights[kalman, "blocks"], flights[kalman, "eager"]
     assert _unequal(blocks, eager) == []
-    assert reads_b == 0 and reads_e > 23
+    assert ts_b == ts_e and len(ts_b) == 23 and all(r == it + 1 for r, it in ts_b)
+    assert reads_b == sum(r for r, _ in ts_b) and reads_e > reads_b + 23
     it = eager.solver_iters
     assert bool((it[:, [0, 10, 20]] > 0).all()) and int((it > 0).sum()) == 12
     assert bool(torch.isfinite(eager.states).all())

@@ -752,33 +752,42 @@ def test_watchers_run_the_eager_loop_on_the_card(cuda):
 
 @pytest.mark.parametrize("accel", ["reference", "secant"])
 def test_tsolver_chain_equals_eager(cuda, accel):
-    """The t-solver's graph (the guess, the seeds and its chain of
-    conditional blocks) against its eager loop on the card, bit for bit, at
-    B=1 and B=64 in f32 and f64; a graph solve reads nothing from the card
-    and counts the eager loop's iterations."""
+    """The t-solver on the card (K4, one launch) against its eager loop on
+    the card, at B=1 and B=64: in f64 t within 1e-9 and the same
+    iterations, in f32 t within 1e-3 (the fixed point's own tolerance); a
+    K4 solve reads nothing from the card, counts [0, the eager loop's
+    iterations] and launches one kernel, inside a capture too, whose replay
+    gives the same t."""
     from learningagileflight_se3_torch.models.sampler import sample_scenarios, scenario_to_problem
+    from learningagileflight_se3_torch.ops import tsolve
     from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
     from learningagileflight_se3_torch.utils.weights import load_dnn2
 
-    for dtype in (torch.float32, torch.float64):
+    for dtype, atol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
         solver = make_traversal_time_solver(load_dnn2().to(device="cuda", dtype=dtype), accel=accel)
         prob = scenario_to_problem(sample_scenarios(torch.Generator(device="cuda").manual_seed(4), 64, dtype=dtype))
         velo = torch.tensor([1.0, 0.3, 0.4], dtype=dtype, device="cuda").expand(64, 3)
-        solver.count = torch.zeros(2, dtype=torch.int32, device="cuda")  # before the graphs' captures
+        solver.count = torch.zeros(2, dtype=torch.int32, device="cuda")
         for B in (64, 1):
             args = [a[:B] for a in (prob["x0"], prob["goal_pos"], prob["gate_pts"], velo)]
             if B == 1:
                 args = [a[0] for a in args]
             counts = {}
-            for drive in ("eager", "graph", "graph"):
+            for drive in ("eager", "kernel"):
                 solver.count.zero_()
-                n = graphs.host_reads
-                t = solver(*args, 1.5707963, drive=None if drive == "graph" else drive)
-                counts[drive] = (t, solver.count.tolist(), graphs.host_reads - n)
-            (te, ce, re), (tg, cg, rg) = counts["eager"], counts["graph"]
-            assert torch.equal(tg, te), (accel, dtype, B)
-            assert rg == 0 and re == ce[1] + 1 and cg[1] == ce[1] and cg[0] == -(-ce[1] // 4)
-        assert solver.captures.count == 2
+                n, k = graphs.host_reads, tsolve.launches
+                t = solver(*args, 1.5707963, drive="eager" if drive == "eager" else None)
+                counts[drive] = (t, solver.count.tolist(), graphs.host_reads - n, tsolve.launches - k)
+            (te, ce, re, ke), (tk, ck, rk, kk) = counts["eager"], counts["kernel"]
+            torch.testing.assert_close(tk, te, rtol=0, atol=atol)
+            assert rk == 0 and re == ce[1] + 1 and ck[0] == 0 and kk == 1 and ke == 0
+            if dtype == torch.float64:
+                assert ck[1] == ce[1], (accel, B)
+            static = [a.clone() for a in args]
+            g = graphs.Captures().capture(lambda: solver(*static, 1.5707963))
+            solver.count.zero_()
+            g.replay()
+            assert torch.equal(g.out, tk) and solver.count.tolist() == ck and g.launches[3] == 1
 
 
 def _tick_pass(dtype, cfg, accel):
@@ -856,6 +865,71 @@ def test_step_graphs_equal_the_step_loop(cuda):
             assert rollout.launches > k[0] and riccati_fused.launches > k[1]
             assert [f for f, a, b in zip(log._fields, log, eager) if not torch.equal(a, b)] == [], kalman
         assert sim.captures.count == 2
+
+
+def test_flight_fixed_point_is_one_kernel(cuda, monkeypatch):
+    """The flight's fixed point on the card is K4: (1) the captured hold and
+    replan step graphs hold no conditional node for it (every IF node of
+    their captures is the replan's solve's) and one K4 launch each; (2) the
+    counter "flight.tsolve" of 8 exported scenarios x 30 steps in f64, with
+    the spans on, reads the same iterations under the step graphs, under the
+    host step loop and from the CPU's eager loop on each step's arguments,
+    and "tsolve.fused" one fixed point a step, at most 8 lanes' worth of
+    those iterations; (3) the tick still meets the f64 replay contract."""
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.sim.tsolver import TraversalTimeSolver
+    from learningagileflight_se3_torch.utils.profiling import spans
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    ifs, in_tsolve, calls = [], [False], []
+    real_if, real_call = graphs.if_node, TraversalTimeSolver.__call__
+
+    def if_node(pred):
+        ifs.append(in_tsolve[0])
+        return real_if(pred)
+
+    def call(self, *args, **kw):
+        calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        in_tsolve[0] = True
+        try:
+            return real_call(self, *args, **kw)
+        finally:
+            in_tsolve[0] = False
+
+    monkeypatch.setattr(graphs, "if_node", if_node)
+    monkeypatch.setattr(TraversalTimeSolver, "__call__", call)
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    steps = 30
+    spans.enable("cuda")
+    try:
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=steps,
+                                   dtype=torch.float64, device="cuda")
+        sim(scen[:8], gate_noise=noise[:8, :steps])  # the captures, with their warm-ups
+        got = {}
+        for drive in ("graph", "eager"):
+            spans.reset()
+            calls.clear()
+            sim(scen[:8], gate_noise=noise[:8, :steps], drive=None if drive == "graph" else drive)
+            got[drive] = spans.collect()["counters"]
+    finally:
+        spans.disable()
+    assert ifs and not any(ifs) and sim.captures.count == 2
+    assert got["graph"] == got["eager"]
+    cpu = TraversalTimeSolver(load_dnn2().double(), tol=1e-3, max_iters=100, accel="reference")
+    cpu.count = torch.zeros(2, dtype=torch.int32)
+    assert len(calls) == steps
+    for args in calls:
+        real_call(cpu, *[a.cpu() if torch.is_tensor(a) else a for a in args])
+    it = got["eager"]["flight.tsolve"]
+    assert it == [0, int(cpu.count[1])] and it[1] > steps
+    fused = got["eager"]["tsolve.fused"]
+    assert fused[0] == steps and it[1] <= fused[1] <= 8 * it[1]
+    z = np.load(CONTRACT)
+    contract = SolverConfig(horizon=int(z["solver_horizon"]), max_iters=int(z["solver_max_iters"]),
+                            u_ub=float(z["solver_u_ub"]))
+    acts, ts, _, _ = _tick_pass(torch.float64, contract, "reference")
+    assert np.abs(acts - z["actions"]).max() <= 1e-4 and np.abs(ts - z["tra_times"]).max() < 1e-6
 
 
 def test_parallel_sweep_keeps_the_eager_loop(cuda):

@@ -12,9 +12,10 @@ versions:
     (__syncwarp / __syncthreads as barriers, __shfl_sync through memory,
     cp.async as a copy that lands only at the cp.async.wait_group that
     retires its group, dynamic shared memory filled with NaN before each
-    block), and the kernels, called through their C entry
-    points on CPU tensors, are held against their plain PyTorch versions in
-    f64 at batch sizes that exercise the ragged edges (1, 5, 20, 33 lanes).
+    block, blocks one after another), and the kernels, called through their
+    C entry points on CPU tensors, are held against their plain PyTorch
+    versions in f64 at batch sizes that exercise the ragged edges (1, 5,
+    20, 33 lanes); K4 against the t-solver's eager loop, in f64 and f32.
     This checks the kernels' indexing, barriers and masking, not the CUDA
     compiler's code or the card's numerics.
 """
@@ -34,6 +35,8 @@ from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfu
 from learningagileflight_se3_torch.ops.inputs import (
     as_tensors, backward_inputs, main_path_inputs, rollout_inputs, with_failing_lanes,
 )
+from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
+from learningagileflight_se3_torch.utils.weights import load_dnn2
 
 SOURCES = sorted(n for n in os.listdir(build.CSRC_DIR) if n.endswith(".cu"))
 
@@ -72,6 +75,12 @@ __device__ float sqrt(float); __device__ double sqrt(double);
 __device__ float fabs(float); __device__ double fabs(double);
 __device__ bool isnan(float); __device__ bool isnan(double);
 __device__ int min(int, int);
+__device__ float cosf(float); __device__ double cos(double);
+__device__ float sinf(float); __device__ double sin(double);
+__device__ float atanf(float); __device__ double atan(double);
+__device__ bool isfinite(float); __device__ bool isfinite(double);
+__device__ int atomicAdd(int*, int); __device__ int atomicMax(int*, int); __device__ int atomicExch(int*, int);
+__device__ void __threadfence();
 __host__ __device__ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 __host__ __device__ inline double2 make_double2(double a, double b) { return {a, b}; }
 """
@@ -99,7 +108,12 @@ inline thread_local uint3 threadIdx, blockIdx, blockDim;
 template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
-using std::fabs; using std::isnan; using std::min; using std::sqrt;
+using std::fabs; using std::isfinite; using std::isnan; using std::min; using std::sqrt;
+// atomics: only a block's thread 0 calls them, and blocks run one after another
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicExch(int* p, int v) { return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST); }
+inline int atomicMax(int* p, int v) { int o = *p; *p = o > v ? o : v; return o; }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 namespace emu {
 struct Block {  // one block's barriers and shuffle slots, shared by its threads
   std::unique_ptr<std::barrier<>> all;
@@ -213,6 +227,9 @@ def emulated(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(build.KernelConsts), ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)
         fn.restype = ctypes.c_int
+    for name in build.TSOLVE_ENTRY_POINTS:
+        getattr(lib, name).argtypes = build.TSOLVE_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -318,3 +335,111 @@ def test_emulated_kernels_on_solver_trajectories(emulated):
     sane = torch.isfinite(ref[2]) & (ref[2].abs() < 1e12)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a[..., sane], b[..., sane], rtol=1e-9, atol=1e-12)
+
+
+# (tol, max_iters) for each update: some lanes converge before the cap, at
+# different iterations, and some meet it
+K4_CASES = {"reference": (1e-4, 14), "secant": (1e-9, 3)}
+
+
+@torch.no_grad()
+def _at_its_fixed_point(lane, r):
+    """The lane's state with its position moved along a line from the
+    gate's centroid (the first of a few random directions on which DNN2's
+    answer less the guess changes sign; bisection on the distance) until
+    the guess |centroid - position| / 3 is DNN2's own answer within 1e-7."""
+    solver = make_traversal_time_solver(load_dnn2().double())
+    c = lane[2].mean(dim=0)
+
+    def gap(away, s):
+        st = lane[0].clone()
+        st[0:3] = c + s * away
+        t0 = torch.linalg.vector_norm(s * away) / 3.0
+        return float(solver._predict(st, lane[1], lane[2], lane[3], lane[4], t0) - t0), st
+
+    for _ in range(20):
+        away = torch.tensor(r.normal(size=3) + [0.0, -3.0, 0.0])
+        grid = np.linspace(0.02, 3.0, 60)
+        signs = [gap(away, s)[0] > 0 for s in grid]
+        hit = [i for i in range(59) if signs[i] != signs[i + 1]]
+        if hit:
+            lo, hi = grid[hit[0]], grid[hit[0] + 1]
+            while hi - lo > 1e-13:
+                mid = 0.5 * (lo + hi)
+                lo, hi = (mid, hi) if (gap(away, mid)[0] > 0) == signs[hit[0]] else (lo, mid)
+            g, st = gap(away, lo)
+            assert abs(g) < 1e-7
+            return st
+    raise AssertionError("no fixed point on the lines tried")
+
+
+def _k4_inputs(B, seed):
+    """B flight situations along the approach to a moving gate.  From 5
+    lanes on, lane 1's state is not finite and lane 2 starts at its fixed
+    point (`_at_its_fixed_point`), with lane 0's pitch rate."""
+    r = np.random.default_rng(seed)
+    state = np.zeros((B, 13))
+    state[:, 0:3] = r.normal(size=(B, 3)) * [1.5, 0.5, 0.8] + [0.0, -6.0, 0.0]
+    state[:, 1] += np.linspace(0.0, 5.0, B)
+    state[:, 3:6] = r.normal(size=(B, 3)) + [0.0, 2.0, 0.0]
+    q = r.normal(size=(B, 4)) * 0.2
+    q[:, 0] += 1.0
+    state[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    final = r.normal(size=(B, 3)) + [0.0, 6.0, 0.0]
+    pts = np.array([[-0.5, 0.0, 1.0], [0.5, 0.0, 1.0], [0.5, 0.0, -1.0], [-0.5, 0.0, -1.0]])
+    pts = pts[None] + r.normal(size=(B, 1, 3)) * 0.5
+    velo = np.array([1.0, 0.3, 0.4]) + r.normal(size=(B, 3)) * 0.1
+    w = np.pi / 2 + r.normal(size=B) * 0.2
+    args = [torch.tensor(a) for a in (state, final, pts, velo, w)]
+    if B >= 5:
+        args[0][1, 0] = np.nan
+        args[4][2] = args[4][0]  # the pitch rate the test passes as a number
+        args[0][2] = _at_its_fixed_point([a[2] for a in args], r)
+    return args
+
+
+@pytest.mark.parametrize("accel", list(K4_CASES))
+@pytest.mark.parametrize("B", [1, 5, 20, 33])
+def test_emulated_tsolve_matches_the_eager_loop(emulated, B, accel):
+    """K4 through both C entry points against the t-solver's eager loop on
+    the same lanes: t in f64 within 1e-9 and in f32 within 1e-3 (its f32
+    rounding against torch's on the CPU, at a cap that binds); in f64 the
+    batch's count is the eager loop's `it`, the lane-iterations of
+    `tsolve.fused` are the sum of each lane's own count (the eager loop on
+    that lane alone), a lane that starts converged and a lane whose state is
+    not finite keep the guess, and the scratch is left zero.  The pitch rate
+    is a number at B=1 and 20, a tensor at 5 and 33; B=1 is the tick's call,
+    with no batch dimension."""
+    tol, cap = K4_CASES[accel]
+    args = _k4_inputs(B, seed=B)
+    w = float(args[4][0]) if B in (1, 20) else args[4]
+    for dtype, atol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        solver = make_traversal_time_solver(load_dnn2().to(dtype), tol=tol, max_iters=cap, accel=accel)
+        lanes = [a.to(dtype) for a in args[:4]] + [w if isinstance(w, float) else w.to(dtype)]
+        if B == 1:  # the tick's call: no batch dimension
+            lanes = [a[0] for a in lanes[:4]] + [w]
+        solver.count = torch.zeros(2, dtype=torch.int32)
+        want = solver(*lanes)
+        it = int(solver.count[1])
+        t = torch.full((B,), np.nan, dtype=dtype)
+        count, fused, scratch = (torch.zeros(2, dtype=torch.int32) for _ in range(3))
+        fn = getattr(emulated, f"laf_tsolve_{'f64' if dtype == torch.float64 else 'f32'}")
+        kernel_args = solver.kernel_args(*lanes)  # held: the pointers are its tensors'
+        assert fn(*[a.data_ptr() for a in kernel_args], tol, cap, int(accel == "secant"), B,
+                  t.data_ptr(), count.data_ptr(), fused.data_ptr(), scratch.data_ptr(), None) == 0
+        torch.testing.assert_close(t.reshape(want.shape), want, rtol=0, atol=atol, equal_nan=True)
+        assert scratch.tolist() == [0, 0] and fused[0] == 1 and count[0] == 0
+        if dtype == torch.float32:
+            assert 0 < count[1] <= cap and count[1] <= fused[1] <= B * count[1]
+            continue
+        own = []
+        for i in range(B):
+            solver.count.zero_()
+            solver(*[a[i] if B > 1 else a for a in lanes[:4]], w if isinstance(w, float) else w[i])
+            own.append(int(solver.count[1]))
+        assert count.tolist() == [0, it] and it == max(own) and int(fused[1]) == sum(own)
+        if B >= 5:
+            guess = torch.linalg.vector_norm(lanes[2][2].mean(dim=0) - lanes[0][2, 0:3]) / 3.0
+            assert own[1] == own[2] == 0 and torch.isnan(t[1]) and abs(float(t[2] - guess)) < 1e-12
+        if B >= 20:
+            assert max(own) == cap and min(own[3:]) < cap

@@ -19,7 +19,7 @@ import torch
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.ops.inputs import bench_problems
 from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
-from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
+from learningagileflight_se3_torch.sim.tsolver import TraversalTimeSolver
 from learningagileflight_se3_torch.solver import ilqr_batched
 from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
 from learningagileflight_se3_torch.utils import graphs, profiling
@@ -114,29 +114,26 @@ def test_a_flights_spans_are_one_a_step_and_nested(drive, dnn2, scenarios):
 
 
 def test_the_tsolver_counter_is_the_eager_loops_iterations(dnn2, scenarios, monkeypatch):
-    """The counter "flight.tsolve" of a flight with spans on: its iterations
-    are those the eager loops ran (each fixed point's final carry counts
-    its own), under the eager drive and the step graphs' blocks alike; its
-    blocks are every block the blocks drive runs (none under the eager one)."""
+    """The counter "flight.tsolve" of a flight with spans on: [0, the
+    iterations the eager loops ran] (each fixed point's final carry counts
+    its own), under the eager drive and the step graphs' blocks alike."""
     scen, noise = scenarios
-    real, iters = graphs.while_blocks, {"eager": [], "blocks": []}
+    real, iters = TraversalTimeSolver.run, []
 
-    def spy(carry, pred, body, k, n_blocks, drive, *a, **kw):
-        out = real(carry, pred, body, k, n_blocks, drive, *a, **kw)
-        if hasattr(out, "t1"):
-            iters["eager" if drive == "eager" else "blocks"].append(int(out.it))
-        return out
+    def spy(*a, **kw):
+        end = real(*a, **kw)
+        iters.append(int(end.it))
+        return end
 
-    monkeypatch.setattr(graphs, "while_blocks", spy)
-    counts = {}
+    monkeypatch.setattr(TraversalTimeSolver, "run", spy)
+    counts, n = {}, {}
     for drive in ("eager", "blocks"):
+        iters.clear()
         spans.enable("cpu")
         _sim(dnn2)(scen, gate_noise=noise, drive=drive)
-        counts[drive] = spans.collect()["counters"]["flight.tsolve"]
-    n = iters["eager"]
-    assert len(n) == STEPS and sum(n) > STEPS and iters["blocks"] == n
-    assert counts["eager"] == [0, sum(n)]
-    assert counts["blocks"] == [STEPS * make_traversal_time_solver(dnn2).n_blocks, sum(n)]
+        counts[drive], n[drive] = spans.collect()["counters"]["flight.tsolve"], list(iters)
+    assert len(n["eager"]) == STEPS and sum(n["eager"]) > STEPS and n["blocks"] == n["eager"]
+    assert counts["eager"] == counts["blocks"] == [0, sum(n["eager"])]
 
 
 # ------------------------------------------------------------ synthetic stamps
@@ -221,18 +218,15 @@ def test_stamps_past_the_ring_are_counted_and_the_window_is_not_read(monkeypatch
 # ------------------------------------------------------------ graph keys
 
 def test_the_graph_keys_follow_the_spans_state(dnn2, monkeypatch):
-    """The solver's and the t-solver's graph keys differ with the spans on
-    and off, and the closed loop captures its step graphs once for each
-    state (a capture stood in for by one that records it)."""
+    """The solver's graph keys differ with the spans on and off, and the
+    closed loop captures its step graphs once for each state (a capture
+    stood in for by one that records it).  (The t-solver keeps no graph:
+    on the card it is one kernel.)"""
     solver = make_batched_mpc_solver(QuadParams(), CostWeights(), SolverConfig(horizon=10, max_iters=4))
     s, _, _ = solver.setup(*bench_problems(3, "cpu", seed=1))
-    tsolver = make_traversal_time_solver(dnn2)
-    args = tsolver._args(torch.zeros(2, 13, dtype=torch.float64), torch.zeros(2, 3, dtype=torch.float64),
-                         torch.zeros(2, 4, 3, dtype=torch.float64), torch.zeros(2, 3, dtype=torch.float64), 1.0)
-    off = solver._key(s), tsolver._key(args)
+    off = solver._key(s)
     spans.enable("cpu")
-    on = solver._key(s), tsolver._key(args)
-    assert off[0] != on[0] and off[1] != on[1]
+    assert solver._key(s) != off
 
     captured = []
 
@@ -242,7 +236,7 @@ def test_the_graph_keys_follow_the_spans_state(dnn2, monkeypatch):
 
     def capture(self, fn, warmup=None):
         captured.append(spans.on)
-        return graphs.Graph(Replay(), None, (0, 0, 0))
+        return graphs.Graph(Replay(), None, (0, 0, 0, 0))
 
     monkeypatch.setattr(graphs.Captures, "capture", capture)
     monkeypatch.setattr(ilqr_batched.BatchedSolver, "graphed", lambda self, device: True)

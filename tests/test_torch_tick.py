@@ -127,8 +127,7 @@ def test_gate_kinematics_and_window_inputs(rng):
 
 @pytest.mark.parametrize("accel", ["reference", "secant"])
 def test_traversal_time_solvers(accel, jax_dnn2, torch_dnn2):
-    """Both fixed points on the contract's first ticks' geometry, on the
-    eager loop and on the blocks drive."""
+    """Both fixed points on the contract's first ticks' geometry."""
     model2, params = jax_dnn2
     z = np.load(CONTRACT)
     jsolve = jax.jit(jtsolver(model2, tol=float(z["fixed_point_tol"]), accel=accel))
@@ -143,11 +142,7 @@ def test_traversal_time_solvers(accel, jax_dnn2, torch_dnn2):
         with torch.no_grad():
             out = tsolve(*[torch.tensor(a) for a in (state, z["final_point"], pts, velo)],
                          float(z["w_rot"]))
-            # every conditional block of the card's chain run: the same t, bit for bit
-            blocks = tsolve(*[torch.tensor(a) for a in (state, z["final_point"], pts, velo)],
-                            float(z["w_rot"]), drive="blocks")
         assert abs(float(out) - float(ref)) < 1e-10, (k, float(out), float(ref))
-        assert torch.equal(blocks, out), (k, float(blocks), float(out))
 
 
 def test_scenario_to_problem_and_sampler_support():
