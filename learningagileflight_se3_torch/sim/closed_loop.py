@@ -29,15 +29,19 @@ retires it by its regularisation blow-out, and no other lane reads it.
 
 With utils/profiling.py's spans on, a flight records the device spans
 "flight.step" (a step's work, first node to last), "flight.tsolve" (the
-fixed point: on the card K4's launch) and "flight.replan" (the window
-inputs, DNN2, the solve and the warm-start shift), and the host spans
+fixed point: on the card K4's launch), "flight.replan" (the window
+inputs, DNN2, the solve and the warm-start shift) and, with
+`estimate_gate_motion`, "flight.estimate" (the gate's observation and the
+Kalman filter's predict and update), and the host spans
 "flight.prepare" (the flight's inputs, gate motion and buffers),
 "flight.inputs" (a step's copies in), "flight.launch" (a step's replay, or
 its queuing in the host step loop), "flight.log" (a step's copies out) and
 "flight.finish"; the t-solver adds [0, iterations] to the counter
 "flight.tsolve" (on the card the batch's iterations are the largest lane
 count) and, on the card, [fixed points run, lane-iterations run] to the
-counter "tsolve.fused".  The step graphs of the two states are kept apart.
+counter "tsolve.fused"; with `estimate_gate_motion` the filter adds
+[updates, lanes whose pitch innovation was wrapped] to the counter
+"estimate.wraps".  The step graphs of the two states are kept apart.
 """
 
 from __future__ import annotations
@@ -199,7 +203,8 @@ def make_closed_loop_sim(
         step's outputs."""
         kx, kP = c.kx, c.kP
         if estimate_gate_motion:
-            ks = kstep(KalmanState(kx, kP), gate_observation(x.pts, noise=x.noise if noisy else None))
+            with spans.device("flight.estimate", device):
+                ks = kstep(KalmanState(kx, kP), gate_observation(x.pts, noise=x.noise if noisy else None))
             kx, kP = ks
             vel, w_use = estimated_velocity(ks)
         else:
@@ -261,6 +266,7 @@ def make_closed_loop_sim(
         # the counters are made before any capture that adds to them
         tsolve.count = spans.counter("flight.tsolve", device) if spans.on else None
         tsolve.fused = spans.counter("tsolve.fused", device) if spans.on else None
+        kstep.count = spans.counter("estimate.wraps", device) if spans.on and estimate_gate_motion else None
         with spans.host("flight.prepare"):
             kw = dict(dtype=dtype, device=device)
             on_device = lambda a: None if a is None else torch.as_tensor(a).to(**kw)

@@ -71,7 +71,12 @@ def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e
                      pitch_period: float = math.pi):
     """step(KalmanState, obs (..., 4)) -> KalmanState: one predict and update
     (Joseph-form covariance).  The model matrices are built once per dtype
-    and device."""
+    and device.  `step.count`, where set to an int32 (2,) tensor on the
+    filters' device (a utils/profiling.py counter), adds [1, the filters
+    whose pitch innovation was wrapped] at every update (wrapped: the
+    wrapped innovation differs from the raw one by more than half the
+    period); None computes nothing.  Set it before a capture that holds a
+    step: a graph adds to the tensor it was captured with."""
     cache = {}
 
     def step(ks: KalmanState, obs) -> KalmanState:
@@ -86,6 +91,9 @@ def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e
         innov = obs.to(xp.dtype) - xp @ Hm.T
         half = 0.5 * pitch_period
         pitch = torch.remainder(innov[..., 3] + half, pitch_period) - half
+        if step.count is not None:
+            step.count[0].add_(1)
+            step.count[1].add_(((pitch - innov[..., 3]).abs() > half).sum(dtype=torch.int32))
         innov = torch.cat([innov[..., 0:3], pitch[..., None]], dim=-1)
         S = Hm @ Pp @ Hm.T + R
         # K^T = S^-1 (Hm Pp), in chol4's layout (matrix axes first)
@@ -96,6 +104,7 @@ def make_kalman_step(dt: float = 0.01, q_accel: float = 25.0, r_meas: float = 1e
         Pn = IKH @ Pp @ IKH.transpose(-1, -2) + K @ R @ K.transpose(-1, -2)
         return KalmanState(x=xn, P=0.5 * (Pn + Pn.transpose(-1, -2)))
 
+    step.count = None
     return step
 
 
