@@ -229,6 +229,15 @@ Phases, each printing its numbers on lines of its own:
              conditional blocks in a graph of its own against run_graph at
              the bench point (B=2048, f32) and at B=1: equal fields, times
              in turns, host reads
+             (e) the line search on the (trip, lane) grid (one K1 launch
+             over every trip, then K5, ops/line_search.py) against the
+             ladder (the rule forced off): seed 2024's cold and warm
+             replans (B=128, f32 and f64), every MPCSolution field equal, K1
+             / K5 launches a solve; K1 over the 14 x 128 grid, K1's one trip
+             and K5 alone (the card's time, median of 20) with their bounds
+             and the whole line search as a graph on each path, in turns;
+             the 128 x 500 flight on each path, every log field equal, wall
+             times in turns
 
   20 spans  utils/profiling.py's spans on the card, in a process of its own
              (`--spans-check`: a second torch.profiler session over
@@ -368,6 +377,20 @@ def median_ms(fn, n=N_TIMED, card_only=False):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def k5_gap(got, want):
+    """The largest absolute difference between two `first_accept` results
+    over every output (Zb, Ub, Jb, and accepted, acc_idx and ls_trips as
+    numbers, so that a flipped decision reads 1 or more); NaN against NaN
+    is no difference, NaN against a number an infinite one."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        d = (a - b).abs()
+        d = torch.where(a.isnan() & b.isnan(), 0.0, torch.where(a.isnan() | b.isnan(), float("inf"), d))
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
 
 
 def bound(inputs, outputs, flops):
@@ -684,24 +707,25 @@ def spans_check():
 def reset_launches():
     """Set the launch count of every kernel wrapper to 0 (the launches that
     conditional graph bodies made on the card before now included)."""
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
     rollout.launches = riccati_fused.launches = riccati_unfused.launches = tsolve.launches = 0
+    line_search.launches = 0
 
 
 def read_launches():
-    """{"K1": n, "K2": n, "K3": n, "K4": n}: each kernel wrapper's launch
-    count, with the launches that conditional graph bodies made on the card
-    (the device ledger, utils/graphs.py settle: one host read, after the
+    """{"K1": n, "K2": n, "K3": n, "K4": n, "K5": n}: each kernel wrapper's
+    launch count, with the launches that conditional graph bodies made on the
+    card (the device ledger, utils/graphs.py settle: one host read, after the
     path)."""
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
     return dict(K1=rollout.launches, K2=riccati_fused.launches, K3=riccati_unfused.launches,
-                K4=tsolve.launches)
+                K4=tsolve.launches, K5=line_search.launches)
 
 
 def read_plain_calls():
@@ -911,10 +935,12 @@ class Smoke:
         out = solve.run("cuda")
         bench = self.path_launches["solve_bench"] = read_launches()
         rep = out["launches"]["sync_rep"]  # one synced solve at the bench config: the main path
-        # the bench counts K1 and K2 a rep; K3 and K4 a rep are at most the whole bench's, checked 0 below
-        self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=bench["K3"], K4=bench["K4"])
+        # the bench counts K1, K2 and K5 a rep; K3 and K4 a rep are at most the whole bench's, checked 0
+        # below; the line search runs on the grid, so a rep's K1 is its first rollout and one a K5
+        self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=bench["K3"], K4=bench["K4"],
+                                               K5=rep["K5"])
         print(json.dumps(out), flush=True)
-        self.check(min(n["K1"], n["K2"]) > 0, f"phase 4 kernel launches {n}")
+        self.check(min(n["K1"], n["K2"], n["K5"]) > 0 and n["K1"] == n["K5"] + 1, f"phase 4 kernel launches {n}")
         self.check(bench["K3"] == bench["K4"] == 0, f"phase 4: the solve bench launched K3 or K4 {bench}")
         self.check(read_plain_calls() == plain0 and rep["K1_plain"] == rep["K2_plain"] == 0,
                    "phase 4 moved a plain-version counter")
@@ -2386,6 +2412,7 @@ class Smoke:
         self._flight_loop_tick()
         self._flight_loop_flights()
         self._flight_loop_run_chain()
+        self._flight_loop_line_search()
 
     def _flight_loop_tsolver(self):
         """(a) the t-solver's K4 against its eager loop on the card: the tick's
@@ -2645,6 +2672,149 @@ class Smoke:
             self.check(not unequal, f"phase 19 run_chain {what}: differs from run_graph in {unequal}")
             self.check(times["chain"][0][1] == 0, f"phase 19 run_chain {what}: host reads")
 
+    def _flight_loop_line_search(self):
+        """(e) the line search on the (trip, lane) grid against the ladder
+        (the rule `ops/line_search.py holds` forced off): the replans of seed
+        2024's first 11 steps (B=128, cold and warm, f32 and f64) solved on
+        each, every MPCSolution field equal, K1 / K5 launches a solve; K1 over
+        the 14 x 128 grid, K1's one trip and K5 alone on one iteration's
+        inputs (the card's time, median of N_TIMED) with their bounds, and
+        that iteration's whole line search captured as a graph on each path;
+        the 128 x 500 flight on each path, every ClosedLoopLog field equal,
+        its wall time in turns."""
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams
+        from learningagileflight_se3_torch.ops import line_search as ls_grid
+        from learningagileflight_se3_torch.ops.rollout import rollout_trials
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config
+        from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+        from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
+        from learningagileflight_se3_torch.utils import graphs
+        from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+        cfg = flight_solver_config()
+        real_holds = ls_grid.holds
+
+        @contextlib.contextmanager
+        def ladder():
+            ls_grid.holds = lambda *a: False
+            try:
+                yield
+            finally:
+                ls_grid.holds = real_holds
+
+        scen, noise = bench_scenarios(bench_scenarios_path(2024))
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=11, device="cuda")
+        with recorded_solves() as solves:
+            sim(scen, gate_noise=noise[:, :11])
+        for (_, args, kw), what in zip(solves[:2], ("cold replan", "warm replan")):
+            for dtype in (torch.float32, torch.float64):
+                a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
+                k = {n: v.to(dtype) if torch.is_tensor(v) else v for n, v in kw.items()}
+                sols, n = {}, {}
+                for path in ("grid", "ladder"):
+                    solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=True)
+                    with (ladder() if path == "ladder" else contextlib.nullcontext()), torch.no_grad():
+                        solver(*a, **k)  # the capture
+                        reset_launches()
+                        sols[path] = solver(*a, **k)
+                        n[path] = read_launches()
+                unequal = [f for f, x, y in zip(sols["grid"]._fields, sols["grid"], sols["ladder"])
+                           if not torch.equal(x, y)]
+                log(f"flight loop line search {what} B=128 {str(dtype)[6:]}: grid equal to the ladder in every "
+                    f"MPCSolution field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
+                    f"iterations max {int(sols['grid'].iterations.max())}, trips {int(sols['grid'].ls_evals)}; "
+                    f"launches a solve grid K1 {n['grid']['K1']} K5 {n['grid']['K5']}, ladder K1 "
+                    f"{n['ladder']['K1']} K5 {n['ladder']['K5']} [{self.smi}]")
+                self.check(not unequal, f"phase 19 line search {what} {dtype}: grid differs in {unequal}")
+                self.check(n["grid"]["K5"] > 0 and n["ladder"]["K5"] == 0,
+                           f"phase 19 line search {what} {dtype}: K5 launches {n}")
+        # one iteration's line search at the flight's shape: the cold replan after 8 iterations
+        _, args, kw = solves[0]
+        solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)
+        with torch.no_grad():
+            s, p, cap = solver.setup(*args, **kw)
+            s = solver.run_blocks(s, p, 8, k=8)
+            kk, KK, dV1, dV2, _, _ = solver.backward(s.Z, s.U, p, s.reg)
+            active = ~s.done & (s.it < s.max_iters)
+            deep = torch.zeros_like(active)
+            search = (s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, ~active)
+            with ladder():
+                ladder_out = solver.line_search(*search, sync=False)
+            grid_out = solver.line_search(*search, sync=False)
+            same = all(torch.equal(x, y) for x, y in zip(grid_out, ladder_out))
+            lad = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, solver.n_deep)
+            alphas = 0.5 ** torch.arange(lad.n_alpha, dtype=s.J.dtype, device="cuda")
+            alpha = ls_grid.alpha_grid(alphas, s.ls0, deep, solver.n_trips, lad)
+            k1 = (s.Z[:-1], s.U, kk, KK, p.t_w)
+            k1_rest = (p.goal, p.tra_pos, p.tra_quat, solver.params, solver.weights, cfg)
+            Zn, Un, Jn = rollout_trials(*k1, alpha, *k1_rest)
+            k5 = (s.Z, s.U, s.J, Zn, Un, Jn, alpha, dV1, dV2, s.ls0, deep, ~active, lad)
+            grid_ms = median_ms(lambda: rollout_trials(*k1, alpha, *k1_rest), card_only=True)
+            trip_ms = median_ms(lambda: rollout_trials(*k1, alpha[:1].contiguous(), *k1_rest), card_only=True)
+            k5_err = k5_gap(ls_grid.first_accept(*k5), ls_grid.first_accept_plain(*k5))
+            k5_ms = median_ms(lambda: ls_grid.first_accept(*k5), card_only=True)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ls_grid.first_accept_plain(*k5)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            T, B = alpha.shape
+            g_ms, g_by = bound(list(k1) + [alpha, p.goal, p.tra_pos, p.tra_quat], [Zn, Un, Jn], K1_FLOPS * T * B * 50)
+            t_ms, t_by = bound(list(k1) + [alpha[:1], p.goal, p.tra_pos, p.tra_quat], [Zn[0], Un[0], Jn[0]],
+                               K1_FLOPS * B * 50)
+            # K5 reads each gathered value once (from the trial or the trajectory) and the trials' costs and steps
+            b5_ms, b5_by = bound([s.Z, s.U, s.J, Jn, alpha, dV1, dV2], [s.Z, s.U, s.J], 12 * T * B)
+            searches = {}
+            with ladder():
+                searches["ladder"] = graphs.Captures().capture(lambda: solver.line_search(*search, sync=False))
+            searches["grid"] = graphs.Captures().capture(lambda: solver.line_search(*search, sync=False))
+            search_ms = {}
+            for path in ("ladder", "grid", "grid", "ladder"):
+                search_ms.setdefault(path, []).append(median_ms(searches[path].graph.replay, card_only=True))
+            same_graph = all(torch.equal(x, y) for x, y in zip(searches["grid"].out, searches["ladder"].out))
+        log(f"flight loop line search one iteration (cold replan, iteration 8, B=128, f32, {T} trips): grid "
+            f"equal to the ladder {same}, as graphs {same_graph}; K5 against its plain version on the same "
+            f"inputs: max abs diff {k5_err:.3e} (Zb, Ub, Jb, accepted, acc_idx, ls_trips); the card's time "
+            f"(median of {N_TIMED}): K1 over "
+            f"the {T} x {B} grid {grid_ms:.4f} ms (bound {g_ms:.4f} ms, {g_by}, {g_ms / grid_ms:.1%}), K1 one "
+            f"trip {trip_ms:.4f} ms (bound {t_ms:.4f} ms, {t_by}), K5 {k5_ms:.4f} ms (bound {b5_ms:.4f} ms, "
+            f"{b5_by}, {b5_ms / k5_ms:.1%}; its plain version {min(walls):.3f} ms, host clock, synced, best of 3); "
+            f"the whole line search as a graph, in turns: ladder {search_ms['ladder']} ms, grid "
+            f"{search_ms['grid']} ms [{self.smi}]")
+        self.check(same and same_graph, "phase 19 line search: one iteration's grid differs from the ladder")
+        self.check(k5_err == 0.0, f"phase 19 line search: K5 differs from its plain version by {k5_err}")
+        self.kernels["K5"] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=min(walls), bound_ms=b5_ms, bound_by=b5_by,
+                                  library_ms=None)
+        # the flight on each path
+        scen_t = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
+        sims, logs, walls = {}, {}, {}
+        for path in ("ladder", "grid", "grid", "ladder"):
+            with ladder() if path == "ladder" else contextlib.nullcontext():
+                if path not in sims:
+                    sims[path] = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=500, device="cuda")
+                    sims[path](scen_t, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise)
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs[path] = sims[path](scen_t, generator=torch.Generator(device="cuda").manual_seed(2024),
+                                        gate_noise=noise)
+                torch.cuda.synchronize()
+                walls.setdefault(path, []).append(time.perf_counter() - t0)
+                n = read_launches()
+                self.path_launches[f"flight, line search on the {path}"] = n
+        unequal = [f for f, x, y in zip(logs["grid"]._fields, logs["grid"], logs["ladder"])
+                   if torch.is_tensor(x) and not torch.equal(x, y)]
+        n_g, n_l = self.path_launches["flight, line search on the grid"], self.path_launches[
+            "flight, line search on the ladder"]
+        log(f"flight loop line search flight seed 2024 128 x 500 f32 (step graphs): grid equal to the ladder in "
+            f"every ClosedLoopLog field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
+            f"wall s in turns ladder {[round(w, 3) for w in walls['ladder']]}, grid "
+            f"{[round(w, 3) for w in walls['grid']]}; launches grid K1 {n_g['K1']} K5 {n_g['K5']}, ladder K1 "
+            f"{n_l['K1']} K5 {n_l['K5']} [{self.smi}]")
+        self.check(not unequal, f"phase 19 line search flight: grid differs from the ladder in {unequal}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2700,7 +2870,7 @@ def drive(s, only):
     for name, fn in phases:
         if only is None or int(name.split()[0]) in only | {1, 2}:
             s.run(name, fn)
-    if s.failures or (only is None and len(s.kernels) != 4):
+    if s.failures or (only is None and len(s.kernels) != 5):
         log(f"chip_smoke FAILED: {s.failures}")
         return 1
     if only is not None:
@@ -2728,6 +2898,9 @@ def drive(s, only):
         dict(name="K4 traversal_time", route="cuda", source=src + "tsolve.cu",
              replaces=None, launches=s.path_launches["solve"]["K4"], launches_by_path=by_path("K4"),
              **s.kernels["K4"]),
+        dict(name="K5 first_accept", route="cuda", source=src + "line_search.cu",
+             replaces=None, launches=s.path_launches["solve"]["K5"], launches_by_path=by_path("K5"),
+             **s.kernels["K5"]),
     ]
     print(json.dumps({"kernels": rows}))
     print(s.smi)

@@ -28,6 +28,15 @@
 //  - Zn and Un are written by the thread of the control row r % 4: a warp's
 //    store of one row covers eight neighbouring scenarios, one 32-byte
 //    sector in f32.
+//
+// Trials.  A launch may roll out T step lengths of the same lanes at once
+// (the line search's whole ladder, solver/ilqr_batched.py): alpha is (T, B)
+// and Zn, Un, cost gain a leading trial axis.  Block (group, trial), the
+// grid's x and y, reads the group's inputs at the lane, as a launch of one
+// trial does, and alpha and the outputs at (trial, lane); the T blocks of a
+// group stream the same gain tiles, which L2 serves after the first.  T = 1
+// is the plain launch.  (Splitting a 1-D block index into the two by a
+// division doubled the kernel's time at every B on an H100, T = 1 included.)
 #include "lane_algebra.cuh"
 
 namespace laf {
@@ -60,6 +69,8 @@ rollout_kernel(const Consts c, const int H, const int B,
   const int sc = tid >> 2, row = tid & 3;  // scenario in the block, control row
   const int b0 = blockIdx.x * K1_SCEN;
   const int nb = min(K1_SCEN, B - b0);
+  // the trial's offsets into alpha and cost, Zn, Un
+  const size_t t_lane = (size_t)blockIdx.y * B, t_z = t_lane * H * NZ, t_u = t_lane * H * NU;
   // threads of a missing scenario (the ragged edge) copy, shuffle and
   // compute on scenario b0's data like the others, and store nothing
   const bool live = sc < nb;
@@ -119,7 +130,7 @@ rollout_kernel(const Consts c, const int H, const int B,
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) tq[i] = tq_p[i * sB + b];
-  const T alpha = alpha_p[b];
+  const T alpha = alpha_p[t_lane + b];
 
   T z[NZ];
 #pragma unroll
@@ -202,8 +213,8 @@ rollout_kernel(const Consts c, const int H, const int B,
     if (live) {
 #pragma unroll
       for (int r = 0; r < NZ; ++r)
-        if ((r & 3) == row) Zn[((size_t)j * NZ + r) * sB + b] = z[r];
-      Un[((size_t)j * NU + row) * sB + b] = ui;
+        if ((r & 3) == row) Zn[t_z + ((size_t)j * NZ + r) * sB + b] = z[r];
+      Un[t_u + ((size_t)j * NU + row) * sB + b] = ui;
     }
   }
 
@@ -213,38 +224,40 @@ rollout_kernel(const Consts c, const int H, const int B,
   cf += wvf * (z[3] * z[3] + z[4] * z[4] + z[5] * z[5]);
   cf += wwf * (z[10] * z[10] + z[11] * z[11] + z[12] * z[12]);
   if (c.use_wqf) cf += wqf * attitude_error(z + 6, ident);
-  if (live && row == 0) cost_p[b] = cost + cf;
+  if (live && row == 0) cost_p[t_lane + b] = cost + cf;
   cp_async_wait<0>();  // no copy outlives the block
 }
 
 template <typename T, int VW>
-int launch_rollout_vw(const Consts* c, int H, int B, const T* Zr, const T* Ur, const T* kk,
-                      const T* KK, const T* tw, const T* alpha, const T* goal, const T* tp,
-                      const T* tq, T* Zn, T* Un, T* cost, cudaStream_t stream) {
+int launch_rollout_vw(const Consts* c, int T_, int H, int B, const T* Zr, const T* Ur,
+                      const T* kk, const T* KK, const T* tw, const T* alpha, const T* goal,
+                      const T* tp, const T* tq, T* Zn, T* Un, T* cost, cudaStream_t stream) {
   constexpr int bytes = k1_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(rollout_kernel<T, VW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (B + K1_SCEN - 1) / K1_SCEN;
+  const int groups = (B + K1_SCEN - 1) / K1_SCEN;
+  const dim3 grid(groups, T_);
   rollout_kernel<T, VW><<<grid, K1_THREADS, bytes, stream>>>(*c, H, B, Zr, Ur, kk, KK, tw, alpha,
                                                              goal, tp, tq, Zn, Un, cost);
   return (int)cudaGetLastError();
 }
 
+// T_ trials of B lanes: alpha (T_, B) -> Zn (T_, H, NZ, B), Un (T_, H, NU, B), cost (T_, B)
 template <typename T>
-int launch_rollout(const Consts* c, int H, int B, const T* Zr, const T* Ur, const T* kk,
+int launch_rollout(const Consts* c, int T_, int H, int B, const T* Zr, const T* Ur, const T* kk,
                    const T* KK, const T* tw, const T* alpha, const T* goal, const T* tp,
                    const T* tq, T* Zn, T* Un, T* cost, cudaStream_t stream) {
-  if (B == 0 || H == 0) return 0;
+  if (B == 0 || H == 0 || T_ == 0) return 0;
   constexpr int VW = 16 / (int)sizeof(T);
   // 16-byte copies need every streamed row to start on 16 bytes
   const bool aligned = B % VW == 0 && ((reinterpret_cast<size_t>(Zr) | reinterpret_cast<size_t>(Ur) |
                                         reinterpret_cast<size_t>(kk) | reinterpret_cast<size_t>(KK) |
                                         reinterpret_cast<size_t>(tw)) % 16 == 0);
-  return aligned ? launch_rollout_vw<T, VW>(c, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn,
-                                            Un, cost, stream)
-                 : launch_rollout_vw<T, 1>(c, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn,
-                                           Un, cost, stream);
+  return aligned ? launch_rollout_vw<T, VW>(c, T_, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq,
+                                            Zn, Un, cost, stream)
+                 : launch_rollout_vw<T, 1>(c, T_, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq,
+                                           Zn, Un, cost, stream);
 }
 
 }  // namespace laf
@@ -255,7 +268,15 @@ int laf_rollout_f32(const laf::Consts* c, int H, int B, const float* Zr, const f
                     const float* kk, const float* KK, const float* tw, const float* alpha,
                     const float* goal, const float* tp, const float* tq, float* Zn, float* Un,
                     float* cost, cudaStream_t stream) {
-  return laf::launch_rollout<float>(c, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
+  return laf::launch_rollout<float>(c, 1, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
+                                    cost, stream);
+}
+
+int laf_rollout_trials_f32(const laf::Consts* c, int T, int H, int B, const float* Zr,
+                           const float* Ur, const float* kk, const float* KK, const float* tw,
+                           const float* alpha, const float* goal, const float* tp, const float* tq,
+                           float* Zn, float* Un, float* cost, cudaStream_t stream) {
+  return laf::launch_rollout<float>(c, T, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
                                     cost, stream);
 }
 
@@ -268,7 +289,16 @@ int laf_rollout_f64(const laf::Consts* c, int H, int B, const double* Zr, const 
                     const double* kk, const double* KK, const double* tw, const double* alpha,
                     const double* goal, const double* tp, const double* tq, double* Zn,
                     double* Un, double* cost, cudaStream_t stream) {
-  return laf::launch_rollout<double>(c, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
+  return laf::launch_rollout<double>(c, 1, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
+                                     cost, stream);
+}
+
+int laf_rollout_trials_f64(const laf::Consts* c, int T, int H, int B, const double* Zr,
+                           const double* Ur, const double* kk, const double* KK, const double* tw,
+                           const double* alpha, const double* goal, const double* tp,
+                           const double* tq, double* Zn, double* Un, double* cost,
+                           cudaStream_t stream) {
+  return laf::launch_rollout<double>(c, T, H, B, Zr, Ur, kk, KK, tw, alpha, goal, tp, tq, Zn, Un,
                                      cost, stream);
 }
 

@@ -9,8 +9,11 @@ at import time, so the CPU tests import this module without nvcc.
 
 Each C entry point of K1 to K3 takes the launch constants as a
 `KernelConsts` struct, the problem sizes, the tensors' device pointers and
-the CUDA stream; K4's takes its pointers, its numbers and the stream
-(`TSOLVE_ARGTYPES`).  Each returns `cudaGetLastError()` after the launch.
+the CUDA stream (K1's trial grid, `laf_rollout_trials_*`, the trial count
+before H and B); K4's takes its pointers, its numbers and the stream
+(`TSOLVE_ARGTYPES`), K5's its numbers, its pointers and the stream
+(`LINE_SEARCH_ARGTYPES`).  Each returns `cudaGetLastError()` after the
+launch.
 """
 
 from __future__ import annotations
@@ -55,6 +58,13 @@ _ENTRY_POINTS = {
 # the stream
 TSOLVE_ENTRY_POINTS = ("laf_tsolve_f32", "laf_tsolve_f64")
 TSOLVE_ARGTYPES = [_p] * 11 + [ctypes.c_double, _i, _i, _i] + [_p] * 4 + [_p]
+# K1 over a grid of trials (csrc/rollout.cu): consts, T, H, B, K1's 12
+# pointers, the stream (ROLLOUT_TRIALS_ARGTYPES, after KernelConsts)
+ROLLOUT_TRIALS_ENTRY_POINTS = ("laf_rollout_trials_f32", "laf_rollout_trials_f64")
+# K5 (csrc/line_search.cu): T, H, B, n_alpha, stride, n_deep, 12 inputs, 6
+# outputs, count, the stream
+LINE_SEARCH_ENTRY_POINTS = ("laf_line_search_f32", "laf_line_search_f64")
+LINE_SEARCH_ARGTYPES = [_i] * 6 + [_p] * 19 + [_p]
 
 
 class KernelConsts(ctypes.Structure):
@@ -68,6 +78,9 @@ class KernelConsts(ctypes.Structure):
     )] + [(n, ctypes.c_int) for n in (
         "squared_attitude", "use_wqf", "use_ddp", "boxqp_iters",
     )]
+
+
+ROLLOUT_TRIALS_ARGTYPES = [ctypes.POINTER(KernelConsts), _i, _i, _i] + [_p] * 12 + [_p]
 
 
 def kernel_consts(params: QuadParams, weights: CostWeights, cfg: SolverConfig,
@@ -150,7 +163,14 @@ def library() -> KernelLibrary:
     for name in TSOLVE_ENTRY_POINTS:
         getattr(lib, name).argtypes = TSOLVE_ARGTYPES
         getattr(lib, name).restype = _i
-    for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes", "laf_tsolve_smem_bytes"):
+    for name in ROLLOUT_TRIALS_ENTRY_POINTS:
+        getattr(lib, name).argtypes = ROLLOUT_TRIALS_ARGTYPES
+        getattr(lib, name).restype = _i
+    for name in LINE_SEARCH_ENTRY_POINTS:
+        getattr(lib, name).argtypes = LINE_SEARCH_ARGTYPES
+        getattr(lib, name).restype = _i
+    for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes", "laf_tsolve_smem_bytes",
+                 "laf_line_search_max_lanes"):
         getattr(lib, name).argtypes = [_i]
         getattr(lib, name).restype = _i
     return KernelLibrary(lib, so, seconds, ptxas_log)

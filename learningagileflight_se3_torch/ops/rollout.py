@@ -17,9 +17,15 @@ Layout (time-major, batch-last), the JAX kernel's:
   Z_ref (H,17,B) states 0..H-1, U_ref / kk (H,4,B), KK (H,4,17,B),
   t_w (H,1,B), alpha (1,B), goal / tra_pos (3,B), tra_quat (4,B)
   -> Zn (H,17,B) states 1..H, Un (H,4,B), cost (B,).
+`rollout_trials` rolls the same lanes out at T step lengths in one launch:
+alpha (T,B) -> Zn (T,H,17,B), Un (T,H,4,B), cost (T,B), trial j what
+`rollout_forward` gives for alpha[j:j+1] (the line search's grid,
+ops/line_search.py).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -80,21 +86,40 @@ def rollout_forward(Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos, tra_quat,
                     params: QuadParams, weights: CostWeights, cfg: SolverConfig):
     """K1 on the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (Zn, Un, cost)."""
+    if alpha.dim() != 2 or alpha.shape[0] != 1:
+        raise ValueError(f"rollout_forward: alpha has shape {tuple(alpha.shape)}, expected (1, B)")
+    Zn, Un, cost = rollout_trials(Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos, tra_quat,
+                                  params, weights, cfg)
+    return Zn[0], Un[0], cost[0]
+
+
+def rollout_trials(Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos, tra_quat,
+                   params: QuadParams, weights: CostWeights, cfg: SolverConfig):
+    """K1 over T trials of the same lanes, alpha (T,B), in one launch for
+    CUDA tensors (the plain version trial by trial for CPU tensors).
+    Returns (Zn (T,H,17,B), Un (T,H,4,B), cost (T,B))."""
     global launches
     H, _, B = Z_ref.shape
+    T = alpha.shape[0] if alpha.dim() == 2 else -1
     tensors = dict(Z_ref=Z_ref, U_ref=U_ref, kk=kk, KK=KK, t_w=t_w, alpha=alpha,
                    goal=goal, tra_pos=tra_pos, tra_quat=tra_quat)
     shapes = dict(Z_ref=(H, NZ, B), U_ref=(H, NU, B), kk=(H, NU, B), KK=(H, NU, NZ, B),
-                  t_w=(H, 1, B), alpha=(1, B), goal=(3, B), tra_pos=(3, B), tra_quat=(4, B))
+                  t_w=(H, 1, B), alpha=(max(T, 1), B), goal=(3, B), tra_pos=(3, B), tra_quat=(4, B))
     device, dtype = build.check_tensors("rollout_forward", shapes, tensors)
     if device.type == "cpu":
-        return rollout_forward_plain(Z_ref, U_ref, kk, KK, t_w, alpha, goal, tra_pos,
-                                     tra_quat, params, weights, cfg)
-    Zn = torch.empty((H, NZ, B), dtype=dtype, device=device)
-    Un = torch.empty((H, NU, B), dtype=dtype, device=device)
-    cost = torch.empty((B,), dtype=dtype, device=device)
+        outs = [rollout_forward_plain(Z_ref, U_ref, kk, KK, t_w, alpha[j:j + 1], goal, tra_pos,
+                                      tra_quat, params, weights, cfg) for j in range(T)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    Zn = torch.empty((T, H, NZ, B), dtype=dtype, device=device)
+    Un = torch.empty((T, H, NU, B), dtype=dtype, device=device)
+    cost = torch.empty((T, B), dtype=dtype, device=device)
     consts = build.kernel_consts(params, weights, cfg, cfg.boxqp_iters, cfg.use_ddp)
-    build.launch("laf_rollout", dtype, consts, H, B, [*tensors.values(), Zn, Un, cost], device)
+    fn = getattr(build.library().lib, f"laf_rollout_trials_{'f64' if dtype == torch.float64 else 'f32'}")
+    with torch.cuda.device(device):
+        rc = fn(ctypes.byref(consts), T, H, B, *[t.data_ptr() for t in (*tensors.values(), Zn, Un, cost)],
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rollout_forward: CUDA launch failed with cudaError {rc}")
     launches += 1
     return Zn, Un, cost
 

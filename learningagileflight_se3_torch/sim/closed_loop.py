@@ -39,9 +39,11 @@ its queuing in the host step loop), "flight.log" (a step's copies out) and
 "flight.finish"; the t-solver adds [0, iterations] to the counter
 "flight.tsolve" (on the card the batch's iterations are the largest lane
 count) and, on the card, [fixed points run, lane-iterations run] to the
-counter "tsolve.fused"; with `estimate_gate_motion` the filter adds
-[updates, lanes whose pitch innovation was wrapped] to the counter
-"estimate.wraps".  The step graphs of the two states are kept apart.
+counter "tsolve.fused"; the replans' line searches on the grid add
+[searches, trips] to the counter "ls.grid" (solver/ilqr_batched.py); with
+`estimate_gate_motion` the filter adds [updates, lanes whose pitch
+innovation was wrapped] to the counter "estimate.wraps".  The step graphs
+of the two states are kept apart.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ Port of `learningagileflight_se3_tpu/solver/ilqr_batched.py`
   1. K2, the fused backward sweep (`ops/riccati_fused.py`): Jacobian blocks,
      cost quadratics, the projected-gradient adjoint, boxQP and gains;
   2. up to `ls_max_trips` launches of K1, the closed-loop rollout with cost
-     (`ops/rollout.py`), in a lock-step per-lane backtracking line search.
+     (`ops/rollout.py`), in a lock-step per-lane backtracking line search;
+     or, on the card under the graph drives, one K1 launch over the (trip,
+     lane) grid and K5, which replays the search's decisions on it
+     (`ops/line_search.py`; up to the lanes K5 holds, `holds`).
 
 K1 with zero gains also makes the initial open-loop rollout.  The semantics
 are the JAX solver's: the Tassa regularization schedule, adaptive and
@@ -72,8 +75,9 @@ With utils/profiling.py's spans on, a solve records the device spans
 captured block and in each conditional body of a chain), "solve.copy_in",
 "solve.copy_out" (the graph's static buffers) and "solve.solution", and
 host spans of the same names with "solve.launch" (a block's replay) and
-"solve.read" (the wait for a block's flag).  Graphs captured with spans on
-and off are kept apart.
+"solve.read" (the wait for a block's flag), and each line search on the
+grid that runs a trip adds [1, its trips] to the counter "ls.grid".  Graphs
+captured with spans on and off are kept apart.
 """
 
 from __future__ import annotations
@@ -84,8 +88,9 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.core.rotations import rodrigues_to_quat
+from learningagileflight_se3_torch.ops import line_search as ls_grid
 from learningagileflight_se3_torch.ops.riccati_fused import riccati_backward
-from learningagileflight_se3_torch.ops.rollout import rollout_forward
+from learningagileflight_se3_torch.ops.rollout import rollout_forward, rollout_trials
 from learningagileflight_se3_torch.solver.analytic import (
     attitude_curvature,
     attitude_offset,
@@ -243,11 +248,20 @@ class BatchedSolver:
         """Per-lane first-acceptable-alpha backtracking, each lane from its
         warm index `ls0`; `deep` lanes sweep the whole ladder at a coarse
         stride; `skip` (finished) lanes enter accepted and cost no trip.
+        Without `sync` (the graph drives), on a card whose K5 holds the
+        batch (`ls_grid.holds`), every trip at once: `line_search_grid`;
+        else trip by trip: `line_search_ladder`.  The same results bit for
+        bit."""
+        if not sync and ls_grid.holds(J.shape[0], J.device):
+            return self.line_search_grid(Z, U, J, kk, KK, p, dV1, dV2, ls0, deep, skip)
+        return self.line_search_ladder(Z, U, J, kk, KK, p, dV1, dV2, ls0, deep, skip, sync)
 
-        `n_trips` trips, each gated on the device by `trip_go`, whether any
-        lane is live in the search: a trip past that is a no-op (its K1
-        launch is wasted work).  With `sync` the host reads `trip_go` and
-        stops there instead."""
+    def line_search_ladder(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip, sync: bool):
+        """`line_search` as `n_trips` trips, each gated on the device by
+        `trip_go`, whether any lane is live in the search: a trip past that
+        is a no-op (its K1 launch is wasted work).  With `sync` the host
+        reads `trip_go` and stops there instead (the eager loop, whose
+        watchers see every trip's K1 call)."""
         cfg = self.cfg
         n_alpha = cfg.line_search_steps
         stride = cfg.ls_max_trips
@@ -291,6 +305,20 @@ class BatchedSolver:
         )
         # lock-step trips this iteration = the deepest per-lane backtrack
         return accepted, Zb, Ub, Jb, acc_idx, i.max()
+
+    def line_search_grid(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip):
+        """`line_search` with every trip rolled out at once: the step length
+        each trip would give each lane (`ls_grid.alpha_grid`), one K1 launch
+        over the (trip, lane) grid, and the ladder's recurrence replayed on
+        its costs (`ls_grid.first_accept`, K5 on the card)."""
+        cfg = self.cfg
+        ladder = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, self.n_deep)
+        alphas = 0.5 ** torch.arange(ladder.n_alpha, dtype=J.dtype, device=J.device)
+        alpha = ls_grid.alpha_grid(alphas, ls0, deep, self.n_trips, ladder)
+        Zn, Un, Jn = rollout_trials(Z[:-1], U, kk, KK, p.t_w, alpha, p.goal, p.tra_pos, p.tra_quat,
+                                    self.params, self.weights, cfg)
+        return ls_grid.first_accept(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder,
+                                    count=grid_counter(J.device))
 
     # ------------------------------------------------------------- the loop
     def setup(self, x0, u_last, goal_pos, tra_pos, tra_ang, t,
@@ -589,6 +617,13 @@ class BatchedSolver:
                 s = self.run_graph(s, p, cap) if drive == "graph" else self.run_chain(s, p, cap, drive)
         with spans.host("solve.solution"), spans.device("solve.solution", device):
             return self.solution(s)
+
+
+def grid_counter(device) -> Optional[torch.Tensor]:
+    """The spans counter "ls.grid" on a CUDA `device` where spans are on
+    (else None): [line searches on the grid that ran a trip, their trips].
+    Made at the first call, which a capture's warm-up makes outside it."""
+    return spans.counter("ls.grid", device) if spans.on and torch.device(device).type == "cuda" else None
 
 
 def make_batched_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig,

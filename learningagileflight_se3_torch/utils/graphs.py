@@ -46,7 +46,7 @@ from learningagileflight_se3_torch.utils.profiling import spans
 host_reads = 0       # host reads of a device value by the loops (each waits for the card)
 eager_on_card = False  # set by solver/watch.py's watchers while they watch
 
-_ledgers = {}        # device -> int64 (4,) launches made in conditional bodies, not yet settled
+_ledgers = {}        # device -> int64 (5,) launches made in conditional bodies, not yet settled
 _body_streams = {}   # device -> the stream that captures conditional bodies (and warms up)
 _body_pools = {}     # device -> the memory pool of the bodies' allocations
 
@@ -75,9 +75,9 @@ def drive(device) -> str:
 
 
 def _wrappers():
-    from learningagileflight_se3_torch.ops import riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
 
-    return rollout, riccati_fused, riccati_unfused, tsolve
+    return rollout, riccati_fused, riccati_unfused, tsolve, line_search
 
 
 def _counts():

@@ -17,6 +17,7 @@ a machine without JAX:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -55,7 +56,7 @@ def _rel_err(a, b):
 
 def test_kernels_build(cuda):
     lib = build.library()
-    for kernel in ("rollout_kernel", "riccati_fused_kernel", "riccati_unfused_kernel"):
+    for kernel in ("rollout_kernel", "riccati_fused_kernel", "riccati_unfused_kernel", "line_search_kernel"):
         assert kernel in lib.ptxas_log
 
 
@@ -710,8 +711,9 @@ def test_graph_launch_counts(cuda):
     """The wrappers count kernel executions: a capture launches nothing and
     each replay adds one block's K1 / K2 launches.  So a graph solve counts
     the eager solve's launches plus the gated ones: k K2 launches a block,
-    n_trips K1 launches an iteration, the rest of the last live block and
-    the one queued behind it."""
+    one K1 launch an iteration (its line search on the grid; the eager loop
+    launches K1 a trip), the rest of the last live block and the one queued
+    behind it."""
     from learningagileflight_se3_torch.solver import ilqr_batched
 
     B, k, cap = 256, ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
@@ -728,7 +730,8 @@ def test_graph_launch_counts(cuda):
     iterations = int(eager.iterations.max())
     blocks = min(-(-iterations // k) + 1, -(-cap // k))
     assert (e1, e2) == (1 + int(eager.ls_evals), iterations)
-    assert (g1, g2) == (1 + blocks * k * solver.n_trips, blocks * k)
+    # the graph's line search runs on the grid: one K1 launch an iteration
+    assert (g1, g2) == (1 + blocks * k, blocks * k)
 
 
 def test_watchers_run_the_eager_loop_on_the_card(cuda):
@@ -975,3 +978,166 @@ def test_failed_capture_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError), torch.no_grad():
         solver(*args)
     assert solver.captures == 0
+
+
+# ---------------------------------------------------------------- the line search on the grid
+
+
+@pytest.fixture
+def ladder_forced(monkeypatch):
+    """A context in which the solver's line search takes the ladder on the
+    card too (ops/line_search.py `holds` forced False)."""
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+
+    @contextlib.contextmanager
+    def forced():
+        with monkeypatch.context() as m:
+            m.setattr(ls_grid, "holds", lambda *a: False)
+            yield
+
+    return forced
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_line_search_kernel_matches_plain(cuda, dtype):
+    """K5 on the card against its plain version on the CPU, on every case of
+    tests/test_torch_line_search.py at 9 and 300 lanes: every output bit for
+    bit, and the counter [1, the trips] where a trip ran."""
+    from test_torch_line_search import CASES, _ladder_of, grid_alpha, search_case
+
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+
+    for lanes in (9, 300):
+        for case in CASES:
+            solver, args, grid = search_case(case, dtype, B=lanes)
+            alpha = grid_alpha(solver, args)
+            Z, U, J, dV1, dV2, ls0, deep, skip = args
+            want = ls_grid.first_accept_plain(Z, U, J, *grid, alpha, dV1, dV2, ls0, deep, skip, _ladder_of(solver))
+            on = [t.cuda() for t in (Z, U, J, *grid, alpha, dV1, dV2, ls0, deep, skip)]
+            count = torch.zeros(2, dtype=torch.int32, device="cuda")
+            n = ls_grid.launches
+            got = ls_grid.first_accept(*on, _ladder_of(solver), count=count)
+            assert ls_grid.launches == n + 1
+            for name, a, b in zip(("accepted", "Zb", "Ub", "Jb", "acc_idx", "ls_trips"), got, want):
+                a = a.cpu()
+                same = torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()) \
+                    if a.is_floating_point() else torch.equal(a, b)
+                assert a.dtype == b.dtype and same, (lanes, case, name)
+            trips = int(want[5])
+            assert count.tolist() == ([1, trips] if trips else [0, 0]), (lanes, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rollout_trials_equal_one_launch_a_trial(cuda, main_path_b, dtype):
+    """K1 over 14 trials of the main path's lanes (the ladder's step
+    lengths) in one launch against 14 launches of one trial: bit for bit."""
+    args = [a.to(dtype) for a in main_path_b[0]]
+    B = args[0].shape[-1]
+    model = (QuadParams(), CostWeights(), SolverConfig(horizon=50))
+    alpha = (0.5 ** torch.arange(14, dtype=dtype, device="cuda"))[:, None].expand(14, B).contiguous()
+    n = rollout.launches
+    grid = rollout.rollout_trials(*args[:5], alpha, *args[6:], *model)
+    assert rollout.launches == n + 1
+    for j in range(14):
+        one = rollout.rollout_forward(*args[:5], alpha[j:j + 1].contiguous(), *args[6:], *model)
+        for a, b in zip(grid, one):
+            assert torch.equal(a[j].isnan(), b.isnan()) and torch.equal(a[j].nan_to_num(), b.nan_to_num()), j
+
+
+def _flight_solves(B, dtype, warm):
+    """(solver config, arguments, U_init or None): bench.py-style problems
+    of B lanes solved at the flight's config, warm-started from the cold
+    solution's controls shifted a step."""
+    from learningagileflight_se3_torch.ops.inputs import bench_problems
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+
+    cfg = flight_solver_config()
+    args = bench_problems(B, "cuda", seed=7, dtype=dtype)
+    U_init = None
+    if warm:
+        with torch.no_grad():
+            U = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg)(*args).control_traj
+        U_init = torch.cat([U[:, 1:], U[:, -1:]], dim=1)
+    return cfg, args, U_init
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_grid_solves_equal_the_ladder(cuda, ladder_forced, B, dtype, start):
+    """Graph-driven solves at the flight's config (14 trips)
+    with the line search on the grid against the same solves on the ladder:
+    every MPCSolution field torch.equal, the gains (KK), ls_evals,
+    iterations, status and the regularisation included; one K1 and one K5
+    launch an iteration on the grid, none of K5 on the ladder."""
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    cfg, args, U_init = _flight_solves(B, dtype, start == "warm")
+    sols, counts = {}, {}
+    for path in ("grid", "ladder"):
+        solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=True)
+        with ladder_forced() if path == "ladder" else contextlib.nullcontext(), torch.no_grad():
+            solver(*args, U_init=U_init)  # the capture
+            n1, n5 = rollout.launches, ls_grid.launches
+            sols[path] = solver(*args, U_init=U_init)
+            counts[path] = (rollout.launches - n1, ls_grid.launches - n5)
+    assert _unequal(sols["grid"], sols["ladder"]) == []
+    k, cap = ilqr_batched.GRAPH_BLOCK, cfg.max_iters
+    blocks = min(-(-int(sols["grid"].iterations.max()) // k) + 1, -(-cap // k))
+    warm_rollout = int(U_init is not None)
+    assert counts["grid"] == (1 + warm_rollout + blocks * k, blocks * k)
+    assert counts["ladder"] == (1 + warm_rollout + blocks * k * 14, 0)
+
+
+def test_bench_point_runs_on_the_grid(cuda, ladder_forced):
+    """The solve cell's shape, B=2048 at 4 adaptive trips (8,192 trials):
+    the graph-driven solve's line search runs on the grid (one K1 and one
+    K5 launch an iteration) and equals the ladder's in every field; K5
+    holds far more lanes than that on the card."""
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+    from learningagileflight_se3_torch.solver import ilqr_batched
+
+    assert ls_grid.holds(2048, "cuda") and ls_grid.max_lanes(torch.cuda.current_device()) >= 16384
+    sols, counts = {}, {}
+    for path in ("grid", "ladder"):
+        solver, args = _graph_case(2048, torch.float32, "bench")
+        with ladder_forced() if path == "ladder" else contextlib.nullcontext(), torch.no_grad():
+            solver(*args)
+            n1, n5 = rollout.launches, ls_grid.launches
+            sols[path] = solver(*args)
+            counts[path] = (rollout.launches - n1, ls_grid.launches - n5)
+    assert _unequal(sols["grid"], sols["ladder"]) == []
+    k, cap = ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
+    blocks = min(-(-int(sols["grid"].iterations.max()) // k) + 1, -(-cap // k))
+    assert counts["grid"] == (1 + blocks * k, blocks * k)
+    assert counts["ladder"] == (1 + blocks * k * solver.n_trips, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_flight_equals_the_ladder(cuda, ladder_forced, dtype):
+    """Seed 2024's 128 x 500 flight on its step graphs with every replan's
+    line search on the grid against the same flight on the ladder: every
+    ClosedLoopLog field torch.equal; the grid's flight launches K5, the
+    ladder's none."""
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    scen = torch.as_tensor(scen, dtype=dtype, device="cuda")
+    logs, k5 = {}, {}
+    for path in ("grid", "ladder"):
+        sim = make_closed_loop_sim(load_dnn2().to(dtype), solver_cfg=flight_solver_config(), steps=500,
+                                   device="cuda", dtype=dtype)
+        with ladder_forced() if path == "ladder" else contextlib.nullcontext():
+            graphs.settle()
+            n = ls_grid.launches
+            logs[path] = sim(scen, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise)
+            graphs.settle()
+            k5[path] = ls_grid.launches - n
+    unequal = [f for f, a, b in zip(logs["grid"]._fields, logs["grid"], logs["ladder"])
+               if torch.is_tensor(a) and not torch.equal(a, b)]
+    assert unequal == []
+    assert k5["grid"] > 0 and k5["ladder"] == 0

@@ -9,13 +9,16 @@ versions:
     with a stub of the few runtime declarations they use, and every template
     instance the C entry points reach is checked;
   - emulation: g++ compiles the sources with one std::thread per CUDA thread
-    (__syncwarp / __syncthreads as barriers, __shfl_sync through memory,
+    (__syncwarp / __syncthreads as barriers, __syncthreads_or a vote between
+    barriers, __shfl_sync through memory,
     cp.async as a copy that lands only at the cp.async.wait_group that
     retires its group, dynamic shared memory filled with NaN before each
     block, blocks one after another), and the kernels, called through their
     C entry points on CPU tensors, are held against their plain PyTorch
     versions in f64 at batch sizes that exercise the ragged edges (1, 5,
-    20, 33 lanes); K4 against the t-solver's eager loop, in f64 and f32.
+    20, 33 lanes); K4 against the t-solver's eager loop, in f64 and f32;
+    K1 over a grid of trials against one launch a trial, and K5 against its
+    plain version, bit for bit in f64 and f32.
     This checks the kernels' indexing, barriers and masking, not the CUDA
     compiler's code or the card's numerics.
 """
@@ -32,6 +35,7 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
+from learningagileflight_se3_torch.ops import line_search as ls_grid
 from learningagileflight_se3_torch.ops.inputs import (
     as_tensors, backward_inputs, main_path_inputs, rollout_inputs, with_failing_lanes,
 )
@@ -46,6 +50,7 @@ struct uint3 { unsigned x, y, z; };
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorLaunchFailure = 719 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 """
@@ -62,12 +67,18 @@ typedef unsigned long size_t;
 """ + _DECLS + """
 struct dim3 { unsigned x, y, z; __host__ __device__ dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 extern const __device__ uint3 threadIdx, blockIdx;
-extern const __device__ dim3 blockDim;
+extern const __device__ dim3 blockDim, gridDim;
 cudaError_t cudaGetLastError();
 cudaError_t cudaConfigureCall(dim3, dim3, size_t = 0, cudaStream_t = 0);
 template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int);
+cudaError_t cudaDeviceGetAttribute(int*, cudaDeviceAttr, int);
 __device__ void __syncwarp(unsigned = 0xffffffffu);
 __device__ void __syncthreads();
+__device__ int __syncthreads_or(int);
+__device__ float __fmul_rn(float, float); __device__ float __fadd_rn(float, float);
+__device__ float __fsub_rn(float, float); __device__ float __fdiv_rn(float, float);
+__device__ double __dmul_rn(double, double); __device__ double __dadd_rn(double, double);
+__device__ double __dsub_rn(double, double); __device__ double __ddiv_rn(double, double);
 __device__ float __shfl_sync(unsigned, float, int, int = 32);
 __device__ double __shfl_sync(unsigned, double, int, int = 32);
 __device__ size_t __cvta_generic_to_shared(const void*);
@@ -104,11 +115,23 @@ EMU_HEADER = """#pragma once
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 """ + _DECLS + """
-inline thread_local uint3 threadIdx, blockIdx, blockDim;
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+inline thread_local uint3 threadIdx, blockIdx, blockDim, gridDim;
 template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) { return cudaSuccess; }
+// an H100's opt-in shared memory per block
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 232448; return cudaSuccess; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
 using std::fabs; using std::isfinite; using std::isnan; using std::min; using std::sqrt;
+// the rounded operations: one IEEE operation each on the host, as on the card
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 // atomics: only a block's thread 0 calls them, and blocks run one after another
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline int atomicExch(int* p, int v) { return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST); }
@@ -119,6 +142,7 @@ struct Block {  // one block's barriers and shuffle slots, shared by its threads
   std::unique_ptr<std::barrier<>> all;
   std::vector<std::unique_ptr<std::barrier<>>> warp;
   double xchg[1024];
+  std::atomic<int> any{0};  // __syncthreads_or's vote
 };
 inline thread_local Block* blk;
 // Dynamic shared memory, every kernel's: filled with NaN bytes before each
@@ -138,10 +162,10 @@ inline void wait(int n) {
     groups.pop_front();
   }
 }
-// blocks one after another (so a kernel's static shared memory, a function
-// static here, is its block's), each thread of a block an std::thread
-inline void launch(int grid, int block, std::function<void()> body) {
-  for (int g = 0; g < grid; ++g) {
+// blocks one after another, x fastest (so a kernel's static shared memory,
+// a function static here, is its block's), each thread of a block an std::thread
+inline void launch(dim3 grid, int block, std::function<void()> body) {
+  for (unsigned g = 0; g < grid.x * grid.y; ++g) {
     Block B;
     B.all = std::make_unique<std::barrier<>>(block);
     for (int w = 0; w < (block + 31) / 32; ++w)
@@ -150,7 +174,8 @@ inline void launch(int grid, int block, std::function<void()> body) {
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
-        threadIdx = {unsigned(t), 0, 0}; blockIdx = {unsigned(g), 0, 0}; blockDim = {unsigned(block), 1, 1};
+        threadIdx = {unsigned(t), 0, 0}; blockIdx = {g % grid.x, g / grid.x, 0}; blockDim = {unsigned(block), 1, 1};
+        gridDim = {grid.x, grid.y, 1};
         blk = &B;
         body();
         bool left = !open_group.empty();
@@ -164,6 +189,17 @@ inline void launch(int grid, int block, std::function<void()> body) {
 inline cudaError_t cudaGetLastError() { return emu::copies_left.exchange(false) ? cudaErrorLaunchFailure : cudaSuccess; }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::blk->warp[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __syncthreads() { emu::blk->all->arrive_and_wait(); }
+// every thread votes between two barriers and reads after the second; thread
+// 0 clears the vote before the next call's first barrier
+inline int __syncthreads_or(int p) {
+  __syncthreads();
+  if (p) emu::blk->any = 1;
+  __syncthreads();
+  const int r = emu::blk->any;
+  __syncthreads();
+  if (threadIdx.x == 0) emu::blk->any = 0;
+  return r;
+}
 template <class T> T __shfl_sync(unsigned, T v, int src, int = 32) {
   emu::blk->xchg[threadIdx.x] = (double)v;
   __syncwarp();
@@ -227,9 +263,12 @@ def emulated(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(build.KernelConsts), ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)
         fn.restype = ctypes.c_int
-    for name in build.TSOLVE_ENTRY_POINTS:
-        getattr(lib, name).argtypes = build.TSOLVE_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
+    for names, argtypes in ((build.TSOLVE_ENTRY_POINTS, build.TSOLVE_ARGTYPES),
+                            (build.ROLLOUT_TRIALS_ENTRY_POINTS, build.ROLLOUT_TRIALS_ARGTYPES),
+                            (build.LINE_SEARCH_ENTRY_POINTS, build.LINE_SEARCH_ARGTYPES)):
+        for name in names:
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -443,3 +482,76 @@ def test_emulated_tsolve_matches_the_eager_loop(emulated, B, accel):
             assert own[1] == own[2] == 0 and torch.isnan(t[1]) and abs(float(t[2] - guess)) < 1e-12
         if B >= 20:
             assert max(own) == cap and min(own[3:]) < cap
+
+
+def _k1_rounds(lib, dtype, H, B, args, alpha, consts):
+    """K1 through the trial entry point: (Zn, Un, cost) with a leading trial axis."""
+    T = alpha.shape[0]
+    out = [torch.full((T, H, 17, B), np.nan, dtype=dtype), torch.full((T, H, 4, B), np.nan, dtype=dtype),
+           torch.full((T, B), np.nan, dtype=dtype)]
+    tensors = [a.to(dtype) for a in args[:5]] + [alpha.to(dtype).contiguous()] + [a.to(dtype) for a in args[6:]]
+    fn = getattr(lib, f"laf_rollout_trials_{'f64' if dtype == torch.float64 else 'f32'}")
+    assert fn(ctypes.byref(consts), T, H, B, *[t.data_ptr() for t in tensors + out], None) == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", [1, 5, 33])
+def test_emulated_rollout_trials_equal_one_launch_a_trial(emulated, B, dtype):
+    """K1 over T = 4 trials (distinct step lengths, one of them 0) in one
+    launch against T launches of one trial on the same lanes: Zn, Un and
+    the cost bit for bit, so the grid's trials are the ladder's trips."""
+    H = 6
+    P, W, C = QuadParams(), CostWeights(), SolverConfig(horizon=H)
+    consts = build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp)
+    args = as_tensors(rollout_inputs(H, B, seed=B))
+    alpha = torch.stack([args[5][0] * s for s in (1.0, 0.5, 0.0, 0.125)])
+    grid = _k1_rounds(emulated, dtype, H, B, args, alpha, consts)
+    for j in range(alpha.shape[0]):
+        one = _k1_rounds(emulated, dtype, H, B, args, alpha[j:j + 1], consts)
+        for a, b in zip(grid, one):
+            assert torch.equal(a[j], b[0]), j
+    ref = rollout.rollout_forward_plain(*[a.to(dtype) for a in args[:5]], alpha[1:2].to(dtype),
+                                        *[a.to(dtype) for a in args[6:]], P, W, C)
+    if dtype == torch.float64:
+        for a, b in zip(grid, ref):
+            torch.testing.assert_close(a[1], b, rtol=1e-9, atol=1e-9)
+
+
+def _same(a, b):
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()) \
+        if a.is_floating_point() else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lanes", [9, 300])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_emulated_line_search_matches_plain(emulated, dtype, lanes):
+    """K5 through its C entry points against first_accept_plain on every
+    case of tests/test_torch_line_search.py (the full ladder, adaptive ls0,
+    deep lanes at strides 4 and 5 with a lane out of trips that accepts at
+    its clamped step, skip lanes, NaN lanes, no lane accepting): every
+    output bit for bit, and the counter [1, the trips] where a trip ran.
+    300 lanes spread the gather over 11 blocks."""
+    from test_torch_line_search import CASES, _ladder_of, grid_alpha, search_case
+
+    for case in CASES:
+        solver, args, grid = search_case(case, dtype, B=lanes)
+        Z, U, J, dV1, dV2, ls0, deep, skip = args
+        alpha = grid_alpha(solver, args)
+        want = ls_grid.first_accept_plain(Z, U, J, *grid, alpha, dV1, dV2, ls0, deep, skip, _ladder_of(solver))
+        got = [torch.full_like(Z, np.nan), torch.full_like(U, np.nan), torch.full_like(J, np.nan),
+               torch.zeros(lanes, dtype=torch.bool), torch.full((lanes,), -7, dtype=torch.int32),
+               torch.full((), -7, dtype=torch.int32)]
+        count = torch.tensor([5, 6], dtype=torch.int32)
+        T, H = grid[0].shape[:2]
+        fn = getattr(emulated, f"laf_line_search_{'f64' if dtype == torch.float64 else 'f32'}")
+        inputs = [Z, U, J, *grid, alpha, dV1, dV2, ls0, deep, skip]
+        assert fn(T, H, lanes, *_ladder_of(solver), *[t.data_ptr() for t in inputs + got[:3]],
+                  got[3].data_ptr(), got[4].data_ptr(), got[5].data_ptr(), count.data_ptr(), None) == 0
+        accepted, Zb, Ub, Jb, acc_idx, trips = want
+        for name, a, b in zip(("accepted", "Zb", "Ub", "Jb", "acc_idx", "ls_trips"),
+                              (got[3], got[0], got[1], got[2], got[4], got[5]), want):
+            assert a.dtype == b.dtype and _same(a, b), (case, name)
+        ran = int(trips) > 0
+        assert count.tolist() == [5 + ran, 6 + int(trips)], case
