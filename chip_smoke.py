@@ -230,14 +230,16 @@ Phases, each printing its numbers on lines of its own:
              the bench point (B=2048, f32) and at B=1: equal fields, times
              in turns, host reads
              (e) the line search on the (trip, lane) grid (one K1 launch
-             over every trip, then K5, ops/line_search.py) against the
-             ladder (the rule forced off): seed 2024's cold and warm
-             replans (B=128, f32 and f64), every MPCSolution field equal, K1
-             / K5 launches a solve; K1 over the 14 x 128 grid, K1's one trip
-             and K5 alone (the card's time, median of 20) with their bounds
-             and the whole line search as a graph on each path, in turns;
-             the 128 x 500 flight on each path, every log field equal, wall
-             times in turns
+             over every trip, then K5, ops/line_search.py) on every drive:
+             seed 2024's cold and warm replans (B=128, f32 and f64) graph-
+             driven against the eager drive, every MPCSolution field equal,
+             K1 / K5 launches a solve; one iteration's search against 14
+             one-trial K1 launches through K5's plain version, bit for bit,
+             and K5 against its plain version; K1 over the 14 x 128 grid,
+             K1's one trip and K5 alone (the card's time, median of 20) with
+             their bounds; the 128 x 500 flight on its step graphs against
+             its host step loop (whose replans replay the solver's block
+             graph), every log field equal
 
   20 spans  utils/profiling.py's spans on the card, in a process of its own
              (`--spans-check`: a second torch.profiler session over
@@ -1388,7 +1390,7 @@ class Smoke:
         cfg = flight_solver_config()
         for name, seed, kw in runs:
             scen, noise = bench_scenarios(bench_scenarios_path(seed))
-            # seed 4096's flight also counts the K1 launches of each DDP
+            # seed 4096's flight also counts the line-search trips of each DDP
             # iteration and the lanes whose sweep failed (no fetch in the loop)
             trips, at_iteration, fails = [], [], []
 
@@ -1435,14 +1437,14 @@ class Smoke:
                 by_band = ", ".join(f"{lo}-{hi - 1}: {t[(k >= lo) & (k < hi)].mean():.2f} "
                                     f"({int(((k >= lo) & (k < hi)).sum())})"
                                     for lo, hi in bands if ((k >= lo) & (k < hi)).any())
-                log(f"closed loop ({name}): K1 launches by DDP iteration (the lock-step line search makes as "
-                    f"many trips as its slowest live lane): {t.size} iterations, mean {t.mean():.2f} trips, "
+                log(f"closed loop ({name}): line-search trips by DDP iteration (the lock-step line search makes "
+                    f"as many trips as its slowest live lane, in one K1 launch over the grid): {t.size} iterations, mean {t.mean():.2f} trips, "
                     f"share at the whole ladder of {cfg.line_search_steps} {full.mean():.4f}, at most 3 trips "
                     f"{(t <= 3).mean():.4f}; mean trips by the iteration's place in its solve (iterations "
                     f"counted) {by_band}; a failed sweep among the 128 lanes (finished lanes included) in "
                     f"{failed.mean():.4f} of all iterations and in {failed[full].mean() if full.any() else 0.0:.4f} "
                     f"of the whole-ladder ones; the other K1 launches open the solves "
-                    f"({n['K1'] - int(t.sum())})")
+                    f"({n['K1'] - t.size})")
             if name == "seed 2024":
                 self.check(abs(out["value"] - 0.9688) <= 0.05,
                            f"phase 9 seed 2024: success {out['value']} not within 0.05 of 0.9688")
@@ -2673,35 +2675,27 @@ class Smoke:
             self.check(times["chain"][0][1] == 0, f"phase 19 run_chain {what}: host reads")
 
     def _flight_loop_line_search(self):
-        """(e) the line search on the (trip, lane) grid against the ladder
-        (the rule `ops/line_search.py holds` forced off): the replans of seed
-        2024's first 11 steps (B=128, cold and warm, f32 and f64) solved on
-        each, every MPCSolution field equal, K1 / K5 launches a solve; K1 over
-        the 14 x 128 grid, K1's one trip and K5 alone on one iteration's
-        inputs (the card's time, median of N_TIMED) with their bounds, and
-        that iteration's whole line search captured as a graph on each path;
-        the 128 x 500 flight on each path, every ClosedLoopLog field equal,
-        its wall time in turns."""
+        """(e) the line search on the (trip, lane) grid, the solver's one line
+        search, on every drive: the replans of seed 2024's first 11 steps
+        (B=128, cold and warm, f32 and f64) graph-driven against the eager
+        drive, every MPCSolution field equal, K1 / K5 launches a solve; on one
+        iteration's inputs the search (one K1 launch over the grid, then K5)
+        against 14 launches of K1 at one trial each fed through K5's plain
+        version, bit for bit, and K5 against its plain version on the grid;
+        K1 over the 14 x 128 grid, K1's one trip and K5 alone (the card's
+        time, median of N_TIMED) with their bounds; the 128 x 500 flight on
+        its step graphs against its host step loop (drive "eager", whose
+        replans replay the solver's block graph), every ClosedLoopLog field
+        equal."""
         from learningagileflight_se3_torch.config import CostWeights, QuadParams
         from learningagileflight_se3_torch.ops import line_search as ls_grid
-        from learningagileflight_se3_torch.ops.rollout import rollout_trials
+        from learningagileflight_se3_torch.ops.rollout import rollout_forward, rollout_trials
         from learningagileflight_se3_torch.sim.bench import flight_solver_config
         from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
         from learningagileflight_se3_torch.solver.ilqr import make_batched_mpc_solver
-        from learningagileflight_se3_torch.utils import graphs
         from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
 
         cfg = flight_solver_config()
-        real_holds = ls_grid.holds
-
-        @contextlib.contextmanager
-        def ladder():
-            ls_grid.holds = lambda *a: False
-            try:
-                yield
-            finally:
-                ls_grid.holds = real_holds
-
         scen, noise = bench_scenarios(bench_scenarios_path(2024))
         sim = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=11, device="cuda")
         with recorded_solves() as solves:
@@ -2711,22 +2705,24 @@ class Smoke:
                 a = [x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x for x in args]
                 k = {n: v.to(dtype) if torch.is_tensor(v) else v for n, v in kw.items()}
                 sols, n = {}, {}
-                for path in ("grid", "ladder"):
+                for drive in ("graph", "eager"):
                     solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=True)
-                    with (ladder() if path == "ladder" else contextlib.nullcontext()), torch.no_grad():
-                        solver(*a, **k)  # the capture
+                    with torch.no_grad():
+                        if drive == "graph":
+                            solver(*a, **k)  # the capture
                         reset_launches()
-                        sols[path] = solver(*a, **k)
-                        n[path] = read_launches()
-                unequal = [f for f, x, y in zip(sols["grid"]._fields, sols["grid"], sols["ladder"])
+                        sols[drive] = solver(*a, **k, drive=drive)
+                        n[drive] = read_launches()
+                unequal = [f for f, x, y in zip(sols["graph"]._fields, sols["graph"], sols["eager"])
                            if not torch.equal(x, y)]
-                log(f"flight loop line search {what} B=128 {str(dtype)[6:]}: grid equal to the ladder in every "
-                    f"MPCSolution field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
-                    f"iterations max {int(sols['grid'].iterations.max())}, trips {int(sols['grid'].ls_evals)}; "
-                    f"launches a solve grid K1 {n['grid']['K1']} K5 {n['grid']['K5']}, ladder K1 "
-                    f"{n['ladder']['K1']} K5 {n['ladder']['K5']} [{self.smi}]")
-                self.check(not unequal, f"phase 19 line search {what} {dtype}: grid differs in {unequal}")
-                self.check(n["grid"]["K5"] > 0 and n["ladder"]["K5"] == 0,
+                log(f"flight loop line search {what} B=128 {str(dtype)[6:]}: graph drive equal to the eager "
+                    f"drive in every MPCSolution field {not unequal}"
+                    f"{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; iterations max "
+                    f"{int(sols['graph'].iterations.max())}, trips {int(sols['graph'].ls_evals)}; launches a "
+                    f"solve graph K1 {n['graph']['K1']} K5 {n['graph']['K5']}, eager K1 {n['eager']['K1']} K5 "
+                    f"{n['eager']['K5']} [{self.smi}]")
+                self.check(not unequal, f"phase 19 line search {what} {dtype}: the drives differ in {unequal}")
+                self.check(n["graph"]["K5"] > 0 and n["eager"]["K5"] > 0,
                            f"phase 19 line search {what} {dtype}: K5 launches {n}")
         # one iteration's line search at the flight's shape: the cold replan after 8 iterations
         _, args, kw = solves[0]
@@ -2737,16 +2733,18 @@ class Smoke:
             kk, KK, dV1, dV2, _, _ = solver.backward(s.Z, s.U, p, s.reg)
             active = ~s.done & (s.it < s.max_iters)
             deep = torch.zeros_like(active)
-            search = (s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, ~active)
-            with ladder():
-                ladder_out = solver.line_search(*search, sync=False)
-            grid_out = solver.line_search(*search, sync=False)
-            same = all(torch.equal(x, y) for x, y in zip(grid_out, ladder_out))
+            search_out = solver.line_search(s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, ~active)
             lad = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, solver.n_deep)
             alphas = 0.5 ** torch.arange(lad.n_alpha, dtype=s.J.dtype, device="cuda")
             alpha = ls_grid.alpha_grid(alphas, s.ls0, deep, solver.n_trips, lad)
             k1 = (s.Z[:-1], s.U, kk, KK, p.t_w)
             k1_rest = (p.goal, p.tra_pos, p.tra_quat, solver.params, solver.weights, cfg)
+            T, B = alpha.shape
+            one = [rollout_forward(*k1, alpha[j:j + 1].contiguous(), *k1_rest) for j in range(T)]
+            trials = [torch.stack(o) for o in zip(*one)]
+            trips_out = ls_grid.first_accept_plain(s.Z, s.U, s.J, *trials, alpha, dV1, dV2, s.ls0, deep, ~active,
+                                                   lad)
+            same = all(torch.equal(x, y) for x, y in zip(search_out, trips_out))
             Zn, Un, Jn = rollout_trials(*k1, alpha, *k1_rest)
             k5 = (s.Z, s.U, s.J, Zn, Un, Jn, alpha, dV1, dV2, s.ls0, deep, ~active, lad)
             grid_ms = median_ms(lambda: rollout_trials(*k1, alpha, *k1_rest), card_only=True)
@@ -2760,60 +2758,46 @@ class Smoke:
                 ls_grid.first_accept_plain(*k5)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
-            T, B = alpha.shape
             g_ms, g_by = bound(list(k1) + [alpha, p.goal, p.tra_pos, p.tra_quat], [Zn, Un, Jn], K1_FLOPS * T * B * 50)
             t_ms, t_by = bound(list(k1) + [alpha[:1], p.goal, p.tra_pos, p.tra_quat], [Zn[0], Un[0], Jn[0]],
                                K1_FLOPS * B * 50)
             # K5 reads each gathered value once (from the trial or the trajectory) and the trials' costs and steps
             b5_ms, b5_by = bound([s.Z, s.U, s.J, Jn, alpha, dV1, dV2], [s.Z, s.U, s.J], 12 * T * B)
-            searches = {}
-            with ladder():
-                searches["ladder"] = graphs.Captures().capture(lambda: solver.line_search(*search, sync=False))
-            searches["grid"] = graphs.Captures().capture(lambda: solver.line_search(*search, sync=False))
-            search_ms = {}
-            for path in ("ladder", "grid", "grid", "ladder"):
-                search_ms.setdefault(path, []).append(median_ms(searches[path].graph.replay, card_only=True))
-            same_graph = all(torch.equal(x, y) for x, y in zip(searches["grid"].out, searches["ladder"].out))
-        log(f"flight loop line search one iteration (cold replan, iteration 8, B=128, f32, {T} trips): grid "
-            f"equal to the ladder {same}, as graphs {same_graph}; K5 against its plain version on the same "
-            f"inputs: max abs diff {k5_err:.3e} (Zb, Ub, Jb, accepted, acc_idx, ls_trips); the card's time "
-            f"(median of {N_TIMED}): K1 over "
+        log(f"flight loop line search one iteration (cold replan, iteration 8, B=128, f32, {T} trips): the "
+            f"search (K1 over the grid, then K5) equal to {T} one-trial K1 launches through K5's plain version "
+            f"{same}; K5 against its plain version on the same inputs: max abs diff {k5_err:.3e} (Zb, Ub, Jb, "
+            f"accepted, acc_idx, ls_trips); the card's time (median of {N_TIMED}): K1 over "
             f"the {T} x {B} grid {grid_ms:.4f} ms (bound {g_ms:.4f} ms, {g_by}, {g_ms / grid_ms:.1%}), K1 one "
             f"trip {trip_ms:.4f} ms (bound {t_ms:.4f} ms, {t_by}), K5 {k5_ms:.4f} ms (bound {b5_ms:.4f} ms, "
-            f"{b5_by}, {b5_ms / k5_ms:.1%}; its plain version {min(walls):.3f} ms, host clock, synced, best of 3); "
-            f"the whole line search as a graph, in turns: ladder {search_ms['ladder']} ms, grid "
-            f"{search_ms['grid']} ms [{self.smi}]")
-        self.check(same and same_graph, "phase 19 line search: one iteration's grid differs from the ladder")
+            f"{b5_by}, {b5_ms / k5_ms:.1%}; its plain version {min(walls):.3f} ms, host clock, synced, best of 3) "
+            f"[{self.smi}]")
+        self.check(same, "phase 19 line search: one iteration's search differs from its one-trial launches")
         self.check(k5_err == 0.0, f"phase 19 line search: K5 differs from its plain version by {k5_err}")
         self.kernels["K5"] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=min(walls), bound_ms=b5_ms, bound_by=b5_by,
                                   library_ms=None)
-        # the flight on each path
+        # the flight on its step graphs and on its host step loop
         scen_t = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
-        sims, logs, walls = {}, {}, {}
-        for path in ("ladder", "grid", "grid", "ladder"):
-            with ladder() if path == "ladder" else contextlib.nullcontext():
-                if path not in sims:
-                    sims[path] = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=500, device="cuda")
-                    sims[path](scen_t, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise)
-                reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logs[path] = sims[path](scen_t, generator=torch.Generator(device="cuda").manual_seed(2024),
-                                        gate_noise=noise)
-                torch.cuda.synchronize()
-                walls.setdefault(path, []).append(time.perf_counter() - t0)
-                n = read_launches()
-                self.path_launches[f"flight, line search on the {path}"] = n
-        unequal = [f for f, x, y in zip(logs["grid"]._fields, logs["grid"], logs["ladder"])
+        logs, walls = {}, {}
+        for drive in ("graph", "eager"):
+            sim = make_closed_loop_sim(load_dnn2(), solver_cfg=cfg, steps=500, device="cuda")
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs[drive] = sim(scen_t, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise,
+                              drive=drive)
+            torch.cuda.synchronize()
+            walls[drive] = time.perf_counter() - t0
+            self.path_launches[f"flight, {drive} drive"] = read_launches()
+        unequal = [f for f, x, y in zip(logs["graph"]._fields, logs["graph"], logs["eager"])
                    if torch.is_tensor(x) and not torch.equal(x, y)]
-        n_g, n_l = self.path_launches["flight, line search on the grid"], self.path_launches[
-            "flight, line search on the ladder"]
-        log(f"flight loop line search flight seed 2024 128 x 500 f32 (step graphs): grid equal to the ladder in "
+        n_g, n_e = self.path_launches["flight, graph drive"], self.path_launches["flight, eager drive"]
+        log(f"flight loop line search flight seed 2024 128 x 500 f32: step graphs equal to the host step loop in "
             f"every ClosedLoopLog field {not unequal}{'' if not unequal else ' (not: ' + ', '.join(unequal) + ')'}; "
-            f"wall s in turns ladder {[round(w, 3) for w in walls['ladder']]}, grid "
-            f"{[round(w, 3) for w in walls['grid']]}; launches grid K1 {n_g['K1']} K5 {n_g['K5']}, ladder K1 "
-            f"{n_l['K1']} K5 {n_l['K5']} [{self.smi}]")
-        self.check(not unequal, f"phase 19 line search flight: grid differs from the ladder in {unequal}")
+            f"wall s (each drive's first flight, its captures included) graph {walls['graph']:.3f}, host loop "
+            f"{walls['eager']:.3f}; launches graph K1 {n_g['K1']} K5 {n_g['K5']}, host loop K1 {n_e['K1']} K5 "
+            f"{n_e['K5']} [{self.smi}]")
+        self.check(not unequal, f"phase 19 line search flight: the drives differ in {unequal}")
+        self.check(n_g["K5"] > 0 and n_e["K5"] > 0, f"phase 19 line search flight: K5 launches {n_g}, {n_e}")
 
 
 def main():

@@ -2,16 +2,15 @@
 //
 // Replaces no TPU kernel: the JAX package's line search
 // (learningagileflight_se3_tpu/solver/ilqr_batched.py) is a loop of K1
-// launches whose selects XLA fuses.  The port's ladder
-// (solver/ilqr_batched.py BatchedSolver.line_search) runs that loop as some
-// 40 small PyTorch kernels a trip around each K1 launch.  Under the graph
-// drives the solver rolls every trial out at once instead, in one K1 launch
-// over a (trial, lane) grid, and K5 then replays the
-// loop's recurrence over the trial axis, reading each trip's costs from the
-// grid: which lanes are live, whether any is (the trip's gate), the
-// acceptance test, the trip counts; then it gathers each lane's accepted
-// trial, or keeps its trajectory.  Its plain PyTorch version (and the CPU's
-// path): ops/line_search.py first_accept_plain.
+// launches whose selects XLA fuses; in PyTorch that loop is some 40 small
+// kernels a trip around each K1 launch.  The solver
+// (solver/ilqr_batched.py BatchedSolver.line_search) rolls every trial out
+// at once instead, in one K1 launch over a (trial, lane) grid, and K5 then
+// replays the loop's recurrence over the trial axis, reading each trip's
+// costs from the grid: which lanes are live, whether any is (the trip's
+// gate), the acceptance test, the trip counts; then it gathers each lane's
+// accepted trial, or keeps its trajectory.  Its plain PyTorch version (the
+// CPU's path): ops/line_search.py first_accept_plain.
 //
 // Bound on the H100.  The gather moves (H+1) 17 B + H 4 B values and writes
 // as many (1.1 MB in f32 at H=50, B=128: well under 1 us at 3.35 TB/s); the

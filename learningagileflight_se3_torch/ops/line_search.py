@@ -1,27 +1,27 @@
 """K5: the line search's first-accept rule over a grid of trial rollouts.
 
 The solver's line search (`solver/ilqr_batched.py` `BatchedSolver.line_search`)
-is a ladder of trips: each trip rolls every lane out at its own step length
-(K1), tests the cost against the expected decrease and keeps the first
-acceptable trial of each lane.  The trips do not depend on each other: each
-rolls out from the same trajectory and gains, and only the step length
-differs.  So on the card, under the graph drives and where K5 holds the
-batch (`holds`), the solver builds the step length that each trip would
-give each lane (`alpha_grid`),
-rolls every trial out in one K1 launch over the (trial, lane) grid
-(`ops/rollout.py` `rollout_trials`), and `first_accept` replays the ladder's
-recurrence over the trial axis on those costs: the same decisions, the same
-trips, the same outputs, bit for bit.
+is a ladder of trips: each trip rolls every lane out at its own step length,
+tests the cost against the expected decrease and keeps the first acceptable
+trial of each lane.  The trips do not depend on each other: each rolls out
+from the same trajectory and gains, and only the step length differs.  So
+the solver builds the step length that each trip would give each lane
+(`alpha_grid`), rolls every trial out in one K1 launch over the (trial,
+lane) grid (`ops/rollout.py` `rollout_trials`), and `first_accept` replays
+the ladder's recurrence over the trial axis on those costs, on every device
+and drive.
 
 CUDA kernel: `csrc/line_search.cu` (one launch; every block replays the
-recurrence and gathers its share of the accepted trajectories).  Its plain
-version, `first_accept_plain`, is the ladder's loop with each trip's rollout
-read from the grid.
+recurrence and gathers its share of the accepted trajectories; it holds the
+state of up to `max_lanes` lanes).  Its plain version, `first_accept_plain`,
+is the ladder's loop with each trip's rollout read from the grid, and the
+port's one statement of that recurrence; `first_accept` takes it for CPU
+tensors, and refuses a card's batch of more lanes than K5 holds.
 
 Layout: Z (H+1,17,B), U (H,4,B), J, dV1, dV2 (B,), Zn (T,H,17,B) states
 1..H of each trial, Un (T,H,4,B), Jn and alpha (T,B), ls0 int32 (B,), deep
 and skip bool (B,) -> (accepted (B,), Zb, Ub, Jb, acc_idx int32 (B,),
-ls_trips int32 ()): what the ladder returns.
+ls_trips int32 ()).
 """
 
 from __future__ import annotations
@@ -56,16 +56,6 @@ def max_lanes(index: int) -> int:
     return build.library().lib.laf_line_search_max_lanes(index)
 
 
-def holds(B: int, device) -> bool:
-    """Whether K5 runs a line search of B lanes on `device`: a card whose
-    block holds the B lanes' state (never the CPU, whose plain K1 runs the
-    ladder's trips one by one)."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return False
-    return B <= max_lanes(torch.cuda.current_device() if device.index is None else device.index)
-
-
 def alpha_grid(alphas, ls0, deep, n_trials: int, ladder: Ladder):
     """(n_trials, B): the step length trip j gives lane b if the lane has not
     accepted before j.  A lane takes a trip while it is live, so before trip j
@@ -80,8 +70,9 @@ def alpha_grid(alphas, ls0, deep, n_trials: int, ladder: Ladder):
 
 
 def first_accept_plain(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder: Ladder):
-    """Plain PyTorch version: the ladder's loop (`BatchedSolver.line_search`),
-    with trip j's rollout read from row j of the grid."""
+    """Plain PyTorch version: the ladder's loop, trip j's rollout read from
+    row j of the grid.  A trip is gated by whether any lane is live in the
+    search (`trip_go`): past that it accepts nothing and counts no trip."""
     global plain_calls
     plain_calls += 1
     n_alpha, stride, n_deep = ladder
@@ -98,6 +89,8 @@ def first_accept_plain(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, la
         trip_go = active.any()
         a = alpha[j]
         expected = -(a * dV1 + a * a * dV2)
+        # not masked by `live` (nor is the JAX solver's): a lane out of
+        # trips still accepts while another lane keeps the search going
         ok = (
             (Jn[j] < J)
             & (expected > 0)
@@ -120,8 +113,9 @@ def first_accept_plain(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, la
 
 def first_accept(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder: Ladder, count=None):
     """K5 on the tensors' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  count (int32 (2,) on the device, or None): the
-    kernel adds [1, the trips] where the search runs any trip."""
+    version for CPU tensors; a ValueError for more CUDA lanes than
+    `max_lanes`.  count (int32 (2,) on the device, or None): the kernel adds
+    [1, the trips] where the search runs any trip."""
     global launches
     T, H = Zn.shape[0], Zn.shape[1]
     B = J.shape[0]
@@ -134,6 +128,9 @@ def first_accept(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder: 
             raise ValueError(f"first_accept: {name} must be a contiguous {want} ({B},) tensor on {device}")
     if device.type == "cpu":
         return first_accept_plain(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder)
+    limit = max_lanes(torch.cuda.current_device() if device.index is None else device.index)
+    if B > limit:
+        raise ValueError(f"first_accept: K5 holds at most {limit} lanes on {device}, not {B}")
     if count is not None and (count.dtype != torch.int32 or count.shape != (2,) or count.device != device):
         raise ValueError(f"first_accept: count must be an int32 (2,) tensor on {device}")
     Zb, Ub, Jb = torch.empty_like(Z), torch.empty_like(U), torch.empty_like(J)

@@ -1,15 +1,15 @@
-"""Natively batched control-limited DDP over the two kernels.
+"""Natively batched control-limited DDP over the port's kernels.
 
 Port of `learningagileflight_se3_tpu/solver/ilqr_batched.py`
 (`make_batched_mpc_solver_pallas`).  Each DDP iteration runs
 
   1. K2, the fused backward sweep (`ops/riccati_fused.py`): Jacobian blocks,
      cost quadratics, the projected-gradient adjoint, boxQP and gains;
-  2. up to `ls_max_trips` launches of K1, the closed-loop rollout with cost
-     (`ops/rollout.py`), in a lock-step per-lane backtracking line search;
-     or, on the card under the graph drives, one K1 launch over the (trip,
-     lane) grid and K5, which replays the search's decisions on it
-     (`ops/line_search.py`; up to the lanes K5 holds, `holds`).
+  2. the lock-step per-lane backtracking line search, every trip at once:
+     one launch of K1, the closed-loop rollout with cost (`ops/rollout.py`),
+     over the (trip, lane) grid of step lengths, then the first-accept rule
+     over the trips (`ops/line_search.py first_accept`: K5 on the card, its
+     plain version on the CPU), the same on every device and drive.
 
 K1 with zero gains also makes the initial open-loop rollout.  The semantics
 are the JAX solver's: the Tassa regularization schedule, adaptive and
@@ -25,7 +25,7 @@ derivatives followed by the parallel-in-time sweep of
 raises).  The JAX package's batched Pallas solver ignores `cfg.backward`
 and always runs its fused kernel; its `backend="xla"` batched solver, the
 vmapped single-problem solver, honours it.  The port follows the `xla`
-backend here.  The line search runs K1 either way.
+backend here.  The line search is the same either way.
 
 Trajectories stay in the kernels' time-major, batch-last layout
 (Z (H+1,17,B), U (H,4,B), KK (H,4,17,B)) for the whole solve, so no
@@ -34,7 +34,7 @@ trailing batch axis.
 
 The solve is the JAX package's shape: a setup (`BatchedSolver.setup`, once
 per solve), then a device-side loop of DDP iterations (`iteration`, a pure
-step on a `SolveState`) whose line search runs a fixed number of trips.
+step on a `SolveState`) whose line search rolls out a fixed number of trips.
 Every trip is gated on the device by whether any lane is still live in the
 search, and every iteration by whether any lane is still live in the solve
 (`go`), so a trip or an iteration run past the loop's exit changes nothing:
@@ -57,9 +57,9 @@ It runs in one of three ways:
     IF node whose predicate is `live_any` of the carry before it
     (utils/graphs.py `while_blocks`), so a block past the exit is skipped
     on the device and the solve makes no host read.
-  * eager: the loops on the host, which stop at a host test (`.any()`) per
-    iteration and per trip.  It is the CPU's loop (the gated trips and
-    iterations it skips are no-ops).  On the card it runs in two cases
+  * eager: the loop on the host, which stops at a host test (`.any()`) per
+    iteration.  It is the CPU's loop (the gated iterations it skips are
+    no-ops).  On the card it runs in two cases
     only (`BatchedSolver.graphed`): while `solver/watch.py`'s watchers are
     on, since they see the kernel wrappers' Python calls, which a graph
     replay does not make; and for cfg.backward="parallel", whose batched
@@ -76,7 +76,7 @@ captured block and in each conditional body of a chain), "solve.copy_in",
 "solve.copy_out" (the graph's static buffers) and "solve.solution", and
 host spans of the same names with "solve.launch" (a block's replay) and
 "solve.read" (the wait for a block's flag), and each line search on the
-grid that runs a trip adds [1, its trips] to the counter "ls.grid".  Graphs
+card that runs a trip adds [1, its trips] to the counter "ls.grid".  Graphs
 captured with spans on and off are kept apart.
 """
 
@@ -106,11 +106,11 @@ NU = 4
 NZ = NX + NU
 
 # DDP iterations per captured graph.  A solve replays it ceil(iterations
-# run / GRAPH_BLOCK) + 1 times at most: the flag read after each block is a
-# host sync, and the block queued behind the last live one and the rest of
-# the last live one are gated no-ops.  4 keeps the no-ops of a solve that
-# stops early (the tick: 13 of 30 iterations) under 7 iterations and its
-# syncs at 60 / 4 = 15 at the bench point.
+# run / GRAPH_BLOCK) + 1 times at most: the flag read after each block
+# waits for the card, and the block queued behind the last live one and the
+# rest of the last live one are gated no-ops.  4 keeps the no-ops of a solve
+# that stops early (the tick: 13 of 30 iterations) under 7 iterations and
+# its host reads at 60 / 4 = 15 at the bench point.
 GRAPH_BLOCK = 4
 
 class SolveState(NamedTuple):
@@ -239,78 +239,15 @@ class BatchedSolver:
             self.params, self.weights, cfg, boxqp_iters=cfg.boxqp_iters, use_ddp=cfg.use_ddp,
         )
 
-    def forward(self, Z, U, kk, KK, p: Problem, alpha):
-        """Closed-loop rollout at per-lane step length alpha (B,)."""
-        Zn, Un, c = self.rollout(Z[:-1], U, kk, KK, p.t_w, alpha[None], p.goal, p.tra_pos, p.tra_quat)
-        return torch.cat([Z[:1], Zn]), Un, c
-
-    def line_search(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip, sync: bool):
+    def line_search(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip):
         """Per-lane first-acceptable-alpha backtracking, each lane from its
         warm index `ls0`; `deep` lanes sweep the whole ladder at a coarse
         stride; `skip` (finished) lanes enter accepted and cost no trip.
-        Without `sync` (the graph drives), on a card whose K5 holds the
-        batch (`ls_grid.holds`), every trip at once: `line_search_grid`;
-        else trip by trip: `line_search_ladder`.  The same results bit for
-        bit."""
-        if not sync and ls_grid.holds(J.shape[0], J.device):
-            return self.line_search_grid(Z, U, J, kk, KK, p, dV1, dV2, ls0, deep, skip)
-        return self.line_search_ladder(Z, U, J, kk, KK, p, dV1, dV2, ls0, deep, skip, sync)
-
-    def line_search_ladder(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip, sync: bool):
-        """`line_search` as `n_trips` trips, each gated on the device by
-        `trip_go`, whether any lane is live in the search: a trip past that
-        is a no-op (its K1 launch is wasted work).  With `sync` the host
-        reads `trip_go` and stops there instead (the eager loop, whose
-        watchers see every trip's K1 call)."""
-        cfg = self.cfg
-        n_alpha = cfg.line_search_steps
-        stride = cfg.ls_max_trips
-        n_deep = self.n_deep
-        dtype, device = J.dtype, J.device
-        tiny = 1e-300 if dtype == torch.float64 else 1e-30
-        alphas = 0.5 ** torch.arange(n_alpha, dtype=dtype, device=device)
-        max_trips = torch.where(deep, n_deep, cfg.ls_max_trips)
-        depth = lambda i: torch.where(deep, i * stride, ls0 + i)
-        live = lambda acc, i: (~acc) & (depth(i) < n_alpha) & (i < max_trips)
-
-        accepted = skip
-        i = torch.zeros_like(ls0)
-        Zb, Ub, Jb = Z, U, J
-        for _ in range(self.n_trips):
-            active = live(accepted, i)
-            trip_go = active.any()
-            if sync and not graphs.read(trip_go):
-                break
-            alpha = alphas[torch.clamp_max(depth(i), n_alpha - 1).long()]
-            Zn, Un, Jn = self.forward(Z, U, kk, KK, p, alpha)
-            expected = -(alpha * dV1 + alpha * alpha * dV2)
-            # not masked by `live` (nor is the JAX solver's): a lane out of
-            # trips still accepts while another lane keeps the search going
-            ok = (
-                (Jn < J)
-                & (expected > 0)
-                & ((J - Jn) / torch.clamp_min(expected, tiny) > 0.1)
-                & ~accepted
-                & trip_go
-            )
-            Zb = torch.where(ok, Zn, Zb)
-            Ub = torch.where(ok, Un, Ub)
-            Jb = torch.where(ok, Jn, Jb)
-            accepted = accepted | ok
-            i = i + active.to(i.dtype)
-        acc_idx = torch.where(
-            accepted,
-            torch.clamp_max(torch.where(deep, (i - 1) * stride, ls0 + i - 1), n_alpha - 1),
-            ls0,
-        )
-        # lock-step trips this iteration = the deepest per-lane backtrack
-        return accepted, Zb, Ub, Jb, acc_idx, i.max()
-
-    def line_search_grid(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip):
-        """`line_search` with every trip rolled out at once: the step length
-        each trip would give each lane (`ls_grid.alpha_grid`), one K1 launch
-        over the (trip, lane) grid, and the ladder's recurrence replayed on
-        its costs (`ls_grid.first_accept`, K5 on the card)."""
+        Every trip at once: the step length each trip would give each lane
+        (`ls_grid.alpha_grid`), one K1 launch over the (trip, lane) grid and
+        the ladder's recurrence replayed on its costs (`ls_grid.first_accept`).
+        A trip is gated on the device by whether any lane is still live in
+        the search: past that it accepts nothing and counts no trip."""
         cfg = self.cfg
         ladder = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, self.n_deep)
         alphas = 0.5 ** torch.arange(ladder.n_alpha, dtype=J.dtype, device=J.device)
@@ -377,10 +314,9 @@ class BatchedSolver:
         )
         return state, p, cap
 
-    def iteration(self, s: SolveState, p: Problem, go: torch.Tensor, sync: bool = False) -> SolveState:
+    def iteration(self, s: SolveState, p: Problem, go: torch.Tensor) -> SolveState:
         """One DDP iteration, every update gated by `go` (0-dim bool on the
-        device; with go False the state comes back unchanged).  `sync`: the
-        line search stops at a host test (the eager loop)."""
+        device; with go False the state comes back unchanged)."""
         cfg = self.cfg
         kk, KK_new, dV1, dV2, fail, pg = self.backward(s.Z, s.U, p, s.reg)
 
@@ -401,7 +337,7 @@ class BatchedSolver:
         else:
             deep = torch.zeros_like(active)
         accepted, Z_ls, U_ls, J_ls, acc_idx, ls_trips = self.line_search(
-            s.Z, s.U, s.J, kk, KK_new, p, dV1, dV2, s.ls0, deep, ~active, sync,
+            s.Z, s.U, s.J, kk, KK_new, p, dV1, dV2, s.ls0, deep, ~active,
         )
         improved = accepted & ~fail & ~stationary & active
 
@@ -456,21 +392,20 @@ class BatchedSolver:
         return SolveState(*(torch.where(go, a, b) for a, b in zip(new, s)))
 
     def run_block(self, s: SolveState, p: Problem, k: int) -> SolveState:
-        """k gated iterations with no host sync: what a graph captures."""
+        """k gated iterations with no host read: what a graph captures."""
         with spans.device("solve.block", s.J.device):
             for _ in range(k):
                 s = self.iteration(s, p, live_any(s))
         return s
 
     def run_eager(self, s: SolveState, p: Problem, cap: int) -> SolveState:
-        """The host loops: a host test per iteration and per trip (the cap
-        is read on the device, from `s.max_iters`; `cap` is the loops'
-        common signature)."""
+        """The host loop: a host test per iteration (the cap is read on the
+        device, from `s.max_iters`; `cap` is the loops' common signature)."""
         while True:
             go = live_any(s)
             if not graphs.read(go):
                 return s
-            s = self.iteration(s, p, go, sync=True)
+            s = self.iteration(s, p, go)
 
     def run_chain(self, s: SolveState, p: Problem, cap: int, drive: str = "chain") -> SolveState:
         """The loop as ceil(cap / GRAPH_BLOCK) blocks of gated iterations,

@@ -18,6 +18,7 @@ import contextlib
 
 import torch
 
+from learningagileflight_se3_torch.ops import line_search as ls_grid
 from learningagileflight_se3_torch.solver import ilqr_batched
 from learningagileflight_se3_torch.utils import graphs
 
@@ -35,47 +36,66 @@ def watched_kernels(on_call):
     `trip` (from 0) of that iteration, the rollout under that sweep's gains;
     "K1 cost": an open-loop rollout at the start of a solve (the warm
     start's guard, the initial trajectory), `iteration` -1 and `trip` None.
-    `args` and `kwargs` are the wrapper's own, `out` what it returned.
+    `args` and `kwargs` are the wrapper's own, `out` what it returned.  The
+    line search rolls every trip out in one K1 launch over the (trip, lane)
+    grid (ops/rollout.py `rollout_trials`); each trip it runs, rows 0 to
+    ls_trips - 1 of the grid, read once the first-accept rule has said how
+    many, is reported as a K1 call of its own: `rollout_forward`'s
+    arguments with alpha[j:j+1], and (Zn[j], Un[j], Jn[j]).
 
     A CUDA solve replays a captured graph, which makes no Python call, so
     inside the block the solver, the tick and the closed loop take their
     eager loops on the card too (`utils/graphs.py eager_on_card`, set here
     and restored on exit; the t-solver stays one kernel, K4, which launches
     none of the kernels watched): the host loops with a sync per DDP
-    iteration and line-search trip, the same kernels on the same inputs,
-    but none of the gated trips a replay runs."""
+    iteration and a read of each line search's trips, the same kernels on
+    the same inputs, but none of the gated iterations a replay runs."""
     real_k1, real_k2 = ilqr_batched.rollout_forward, ilqr_batched.riccati_backward
+    real_trials, real_accept = ilqr_batched.rollout_trials, ls_grid.first_accept
     real_sweep = ilqr_batched.parallel_backward
     eager_before = graphs.eager_on_card
-    at = dict(solve=-1, iteration=-1, trip=0, kk=None)
+    at = dict(solve=-1, iteration=-1, grid=None)
 
     def sweep(kind, real):
         def call(*a, **kw):
             out = real(*a, **kw)
-            at.update(iteration=at["iteration"] + 1, trip=0, kk=out[0])
+            at["iteration"] += 1
             on_call(kind, at["solve"], at["iteration"], None, a, kw, out)
             return out
         return call
 
     def k1(*a, **kw):
         out = real_k1(*a, **kw)
-        if a[2] is at["kk"]:  # the gains of the last sweep: a line-search trip
-            on_call("K1", at["solve"], at["iteration"], at["trip"], a, kw, out)
-            at["trip"] += 1
-            return out
         if at["iteration"] >= 0 or at["solve"] < 0:  # the first rollout of a new solve
             at.update(solve=at["solve"] + 1, iteration=-1)
-        at["kk"] = None
         on_call("K1 cost", at["solve"], -1, None, a, kw, out)
         return out
 
+    def trials(*a, **kw):
+        out = real_trials(*a, **kw)
+        at["grid"] = (a, kw, out)
+        return out
+
+    def accept(*a, **kw):
+        out = real_accept(*a, **kw)
+        grid, at["grid"] = at["grid"], None
+        if grid is not None and a[3] is grid[2][0]:  # the search on the solver's grid
+            args, grid_kw, (Zn, Un, Jn) = grid
+            alpha = args[5]
+            for j in range(int(out[5])):
+                trip_args = (*args[:5], alpha[j:j + 1], *args[6:])
+                on_call("K1", at["solve"], at["iteration"], j, trip_args, grid_kw, (Zn[j], Un[j], Jn[j]))
+        return out
+
     ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = k1, sweep("K2", real_k2)
+    ilqr_batched.rollout_trials, ls_grid.first_accept = trials, accept
     ilqr_batched.parallel_backward = sweep("parallel sweep", real_sweep)
     graphs.eager_on_card = True
     try:
         yield
     finally:
         ilqr_batched.rollout_forward, ilqr_batched.riccati_backward = real_k1, real_k2
+        ilqr_batched.rollout_trials, ls_grid.first_accept = real_trials, real_accept
         ilqr_batched.parallel_backward = real_sweep
         graphs.eager_on_card = eager_before
 

@@ -17,7 +17,6 @@ a machine without JAX:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
 
-import contextlib
 import os
 
 import numpy as np
@@ -711,9 +710,9 @@ def test_graph_launch_counts(cuda):
     """The wrappers count kernel executions: a capture launches nothing and
     each replay adds one block's K1 / K2 launches.  So a graph solve counts
     the eager solve's launches plus the gated ones: k K2 launches a block,
-    one K1 launch an iteration (its line search on the grid; the eager loop
-    launches K1 a trip), the rest of the last live block and the one queued
-    behind it."""
+    one K1 launch an iteration (its line search on the grid, as on the
+    eager loop), the rest of the last live block and the one queued behind
+    it."""
     from learningagileflight_se3_torch.solver import ilqr_batched
 
     B, k, cap = 256, ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
@@ -729,8 +728,7 @@ def test_graph_launch_counts(cuda):
     assert _unequal(graph, eager) == []
     iterations = int(eager.iterations.max())
     blocks = min(-(-iterations // k) + 1, -(-cap // k))
-    assert (e1, e2) == (1 + int(eager.ls_evals), iterations)
-    # the graph's line search runs on the grid: one K1 launch an iteration
+    assert (e1, e2) == (1 + iterations, iterations)
     assert (g1, g2) == (1 + blocks * k, blocks * k)
 
 
@@ -909,6 +907,9 @@ def test_flight_fixed_point_is_one_kernel(cuda, monkeypatch):
         sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=steps,
                                    dtype=torch.float64, device="cuda")
         sim(scen[:8], gate_noise=noise[:8, :steps])  # the captures, with their warm-ups
+        # the host step loop's replans replay the solver's own block graph: its
+        # capture's warm-up block adds to the counters, so it is made here too
+        sim(scen[:8], gate_noise=noise[:8, :steps], drive="eager")
         got = {}
         for drive in ("graph", "eager"):
             spans.reset()
@@ -983,21 +984,6 @@ def test_failed_capture_raises(cuda, monkeypatch):
 # ---------------------------------------------------------------- the line search on the grid
 
 
-@pytest.fixture
-def ladder_forced(monkeypatch):
-    """A context in which the solver's line search takes the ladder on the
-    card too (ops/line_search.py `holds` forced False)."""
-    from learningagileflight_se3_torch.ops import line_search as ls_grid
-
-    @contextlib.contextmanager
-    def forced():
-        with monkeypatch.context() as m:
-            m.setattr(ls_grid, "holds", lambda *a: False)
-            yield
-
-    return forced
-
-
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_line_search_kernel_matches_plain(cuda, dtype):
     """K5 on the card against its plain version on the CPU, on every case of
@@ -1061,65 +1047,79 @@ def _flight_solves(B, dtype, warm):
     return cfg, args, U_init
 
 
+def _drive_counts(solver, args, kw, drive):
+    """The solve on `drive` (a graph drive's capture made first) and its K1
+    and K5 launches."""
+    from learningagileflight_se3_torch.ops import line_search as ls_grid
+
+    with torch.no_grad():
+        if drive != "eager":
+            solver(*args, **kw)  # the capture
+        n1, n5 = rollout.launches, ls_grid.launches
+        sol = solver(*args, **kw, drive=drive)
+        return sol, (rollout.launches - n1, ls_grid.launches - n5)
+
+
 @pytest.mark.parametrize("start", ["cold", "warm"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B", [1, 8, 128])
-def test_grid_solves_equal_the_ladder(cuda, ladder_forced, B, dtype, start):
-    """Graph-driven solves at the flight's config (14 trips)
-    with the line search on the grid against the same solves on the ladder:
-    every MPCSolution field torch.equal, the gains (KK), ls_evals,
-    iterations, status and the regularisation included; one K1 and one K5
-    launch an iteration on the grid, none of K5 on the ladder."""
-    from learningagileflight_se3_torch.ops import line_search as ls_grid
+def test_grid_solves_equal_the_ladder(cuda, B, dtype, start):
+    """Graph-driven solves at the flight's config (14 trips) against the
+    same solves on the eager drive, whose line search is the same grid: every
+    MPCSolution field torch.equal, the gains (KK), ls_evals, iterations,
+    status and the regularisation included; one K1 and one K5 launch an
+    iteration on either drive (each block's iterations in a graph, each
+    iteration run on the eager one)."""
     from learningagileflight_se3_torch.solver import ilqr_batched
 
     cfg, args, U_init = _flight_solves(B, dtype, start == "warm")
     sols, counts = {}, {}
-    for path in ("grid", "ladder"):
+    for drive in ("graph", "eager"):
         solver = make_batched_mpc_solver(QuadParams(), CostWeights(), cfg, return_gains=True)
-        with ladder_forced() if path == "ladder" else contextlib.nullcontext(), torch.no_grad():
-            solver(*args, U_init=U_init)  # the capture
-            n1, n5 = rollout.launches, ls_grid.launches
-            sols[path] = solver(*args, U_init=U_init)
-            counts[path] = (rollout.launches - n1, ls_grid.launches - n5)
-    assert _unequal(sols["grid"], sols["ladder"]) == []
+        sols[drive], counts[drive] = _drive_counts(solver, args, dict(U_init=U_init), drive)
+    assert _unequal(sols["graph"], sols["eager"]) == []
     k, cap = ilqr_batched.GRAPH_BLOCK, cfg.max_iters
-    blocks = min(-(-int(sols["grid"].iterations.max()) // k) + 1, -(-cap // k))
+    its = int(sols["graph"].iterations.max())
+    blocks = min(-(-its // k) + 1, -(-cap // k))
     warm_rollout = int(U_init is not None)
-    assert counts["grid"] == (1 + warm_rollout + blocks * k, blocks * k)
-    assert counts["ladder"] == (1 + warm_rollout + blocks * k * 14, 0)
+    assert counts["graph"] == (1 + warm_rollout + blocks * k, blocks * k)
+    assert counts["eager"] == (1 + warm_rollout + its, its)
 
 
-def test_bench_point_runs_on_the_grid(cuda, ladder_forced):
+def test_bench_point_runs_on_the_grid(cuda, monkeypatch):
     """The solve cell's shape, B=2048 at 4 adaptive trips (8,192 trials):
-    the graph-driven solve's line search runs on the grid (one K1 and one
-    K5 launch an iteration) and equals the ladder's in every field; K5
-    holds far more lanes than that on the card."""
+    K5 holds far more lanes than that on the card, so `first_accept` takes
+    it, one K1 and one K5 launch an iteration on the graph and eager
+    drives, which agree in every field; with the card's limit set below the
+    batch, the solve is refused with a ValueError that names the limit."""
     from learningagileflight_se3_torch.ops import line_search as ls_grid
     from learningagileflight_se3_torch.solver import ilqr_batched
 
-    assert ls_grid.holds(2048, "cuda") and ls_grid.max_lanes(torch.cuda.current_device()) >= 16384
+    assert ls_grid.max_lanes(torch.cuda.current_device()) >= 16384
     sols, counts = {}, {}
-    for path in ("grid", "ladder"):
+    for drive in ("graph", "eager"):
         solver, args = _graph_case(2048, torch.float32, "bench")
-        with ladder_forced() if path == "ladder" else contextlib.nullcontext(), torch.no_grad():
-            solver(*args)
-            n1, n5 = rollout.launches, ls_grid.launches
-            sols[path] = solver(*args)
-            counts[path] = (rollout.launches - n1, ls_grid.launches - n5)
-    assert _unequal(sols["grid"], sols["ladder"]) == []
+        sols[drive], counts[drive] = _drive_counts(solver, args, {}, drive)
+    assert _unequal(sols["graph"], sols["eager"]) == []
     k, cap = ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
-    blocks = min(-(-int(sols["grid"].iterations.max()) // k) + 1, -(-cap // k))
-    assert counts["grid"] == (1 + blocks * k, blocks * k)
-    assert counts["ladder"] == (1 + blocks * k * solver.n_trips, 0)
+    its = int(sols["graph"].iterations.max())
+    blocks = min(-(-its // k) + 1, -(-cap // k))
+    assert counts["graph"] == (1 + blocks * k, blocks * k)
+    assert counts["eager"] == (1 + its, its)
+    monkeypatch.setattr(ls_grid, "max_lanes", lambda index: 2047)
+    n = ls_grid.plain_calls
+    solver, args = _graph_case(2048, torch.float32, "bench")
+    with pytest.raises(ValueError, match="at most 2047 lanes"):
+        _drive_counts(solver, args, {}, "eager")
+    assert ls_grid.plain_calls == n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_grid_flight_equals_the_ladder(cuda, ladder_forced, dtype):
-    """Seed 2024's 128 x 500 flight on its step graphs with every replan's
-    line search on the grid against the same flight on the ladder: every
-    ClosedLoopLog field torch.equal; the grid's flight launches K5, the
-    ladder's none."""
+def test_grid_flight_equals_the_ladder(cuda, dtype):
+    """Seed 2024's 128 x 500 flight on its step graphs against the same
+    flight on its host step loop (drive "eager", whose replans replay the
+    solver's own block graph), every replan's line search on the grid on
+    both: every ClosedLoopLog field torch.equal; both launch K5."""
     from learningagileflight_se3_torch.ops import line_search as ls_grid
     from learningagileflight_se3_torch.sim.bench import flight_solver_config
     from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
@@ -1128,16 +1128,16 @@ def test_grid_flight_equals_the_ladder(cuda, ladder_forced, dtype):
     scen, noise = bench_scenarios(bench_scenarios_path(2024))
     scen = torch.as_tensor(scen, dtype=dtype, device="cuda")
     logs, k5 = {}, {}
-    for path in ("grid", "ladder"):
+    for drive in ("graph", "eager"):
         sim = make_closed_loop_sim(load_dnn2().to(dtype), solver_cfg=flight_solver_config(), steps=500,
                                    device="cuda", dtype=dtype)
-        with ladder_forced() if path == "ladder" else contextlib.nullcontext():
-            graphs.settle()
-            n = ls_grid.launches
-            logs[path] = sim(scen, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise)
-            graphs.settle()
-            k5[path] = ls_grid.launches - n
-    unequal = [f for f, a, b in zip(logs["grid"]._fields, logs["grid"], logs["ladder"])
+        graphs.settle()
+        n = ls_grid.launches
+        logs[drive] = sim(scen, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise,
+                          drive=drive)
+        graphs.settle()
+        k5[drive] = ls_grid.launches - n
+    unequal = [f for f, a, b in zip(logs["graph"]._fields, logs["graph"], logs["eager"])
                if torch.is_tensor(a) and not torch.equal(a, b)]
     assert unequal == []
-    assert k5["grid"] > 0 and k5["ladder"] == 0
+    assert k5["graph"] > 0 and k5["eager"] > 0
