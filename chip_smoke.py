@@ -395,6 +395,50 @@ def k5_gap(got, want):
     return worst
 
 
+def glue_timings(solver, s, p):
+    """K6 (ops/ddp_glue.py) on one DDP iteration's inputs: the state s after
+    some iterations, K2 and the line search run on it.  Returns {step:
+    (card ms alone, median of N_TIMED; bound ms; bound by)}, its three plain
+    versions' time together (host clock, synced, best of 3, ms) and the
+    largest difference of any output from the plain version's (k5_gap)."""
+    from learningagileflight_se3_torch.ops import ddp_glue
+
+    cfg, consts, lad = solver.cfg, solver.glue_consts(), solver.ladder()
+    kk, KK, dV1, dV2, fail, pg = solver.backward(s.Z, s.U, p, s.reg)
+    deep, skip, alpha, go = ddp_glue.decide(s, dV1, dV2, cfg, lad, solver.n_trips, consts)
+    search = solver.line_search(s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, skip, alpha)
+    steps = dict(
+        prepare=(lambda: ddp_glue.prepare(s.Z, s.U, p.goal, solver.weights, consts),
+                 lambda: ddp_glue.prepare_plain(s.Z, s.U, p.goal, solver.weights)),
+        decide=(lambda: ddp_glue.decide(s, dV1, dV2, cfg, lad, solver.n_trips, consts),
+                lambda: ddp_glue.decide_plain(s, dV1, dV2, cfg, lad, solver.n_trips)),
+        commit=(lambda: ddp_glue.commit(s, KK, dV1, dV2, fail, pg, *search, go, cfg, consts),
+                lambda: ddp_glue.commit_plain(s, KK, dV1, dV2, fail, pg, *search, go, cfg)))
+    # what each step reads and writes once: prepare Z, U, goal -> ZU, phi_z, phi_zz; decide the lanes'
+    # scalars -> the grid; commit the kept side of Z, U, KK and the lanes' fields -> the new state
+    out, gap = {}, 0.0
+    for step, (kernel, plain) in steps.items():
+        got, want = kernel(), plain()
+        gap = max(gap, k5_gap(got, want))
+        if step == "prepare":
+            ins, outs = [s.Z, s.U, p.goal], list(got)
+        elif step == "decide":
+            ins, outs = [s.J, dV1, dV2, s.it, s.ls0, s.n_np], [got[2]]
+        else:
+            ins = [s.Z, s.U, s.KK, s.J, s.reg, s.pg, s.J_chk, dV1, dV2, pg, search[3]]
+            outs = [got.Z, got.U, got.J, got.KK, got.reg, got.pg, got.J_chk]
+        out[step] = (median_ms(kernel, card_only=True), *bound(ins, outs, 0))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, plain in steps.values():
+            plain()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, min(walls), gap
+
+
 def bound(inputs, outputs, flops):
     """(bound_ms, bound_by): the least time the card could take to read every
     input once, write every output once (in the inputs' dtype) and do
@@ -709,25 +753,25 @@ def spans_check():
 def reset_launches():
     """Set the launch count of every kernel wrapper to 0 (the launches that
     conditional graph bodies made on the card before now included)."""
-    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import ddp_glue, line_search, riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
     rollout.launches = riccati_fused.launches = riccati_unfused.launches = tsolve.launches = 0
-    line_search.launches = 0
+    line_search.launches = ddp_glue.launches = 0
 
 
 def read_launches():
-    """{"K1": n, "K2": n, "K3": n, "K4": n, "K5": n}: each kernel wrapper's
+    """{"K1": n, "K2": n, "K3": n, "K4": n, "K5": n, "K6": n}: each kernel wrapper's
     launch count, with the launches that conditional graph bodies made on the
     card (the device ledger, utils/graphs.py settle: one host read, after the
     path)."""
-    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import ddp_glue, line_search, riccati_fused, riccati_unfused, rollout, tsolve
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
     return dict(K1=rollout.launches, K2=riccati_fused.launches, K3=riccati_unfused.launches,
-                K4=tsolve.launches, K5=line_search.launches)
+                K4=tsolve.launches, K5=line_search.launches, K6=ddp_glue.launches)
 
 
 def read_plain_calls():
@@ -940,7 +984,7 @@ class Smoke:
         # the bench counts K1, K2 and K5 a rep; K3 and K4 a rep are at most the whole bench's, checked 0
         # below; the line search runs on the grid, so a rep's K1 is its first rollout and one a K5
         self.path_launches["solve"] = n = dict(K1=rep["K1"], K2=rep["K2"], K3=bench["K3"], K4=bench["K4"],
-                                               K5=rep["K5"])
+                                               K5=rep["K5"], K6=rep["K6"])
         print(json.dumps(out), flush=True)
         self.check(min(n["K1"], n["K2"], n["K5"]) > 0 and n["K1"] == n["K5"] + 1, f"phase 4 kernel launches {n}")
         self.check(bench["K3"] == bench["K4"] == 0, f"phase 4: the solve bench launched K3 or K4 {bench}")
@@ -2687,7 +2731,7 @@ class Smoke:
         its step graphs against its host step loop (drive "eager", whose
         replans replay the solver's block graph), every ClosedLoopLog field
         equal."""
-        from learningagileflight_se3_torch.config import CostWeights, QuadParams
+        from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
         from learningagileflight_se3_torch.ops import line_search as ls_grid
         from learningagileflight_se3_torch.ops.rollout import rollout_forward, rollout_trials
         from learningagileflight_se3_torch.sim.bench import flight_solver_config
@@ -2733,10 +2777,10 @@ class Smoke:
             kk, KK, dV1, dV2, _, _ = solver.backward(s.Z, s.U, p, s.reg)
             active = ~s.done & (s.it < s.max_iters)
             deep = torch.zeros_like(active)
-            search_out = solver.line_search(s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, ~active)
             lad = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, solver.n_deep)
             alphas = 0.5 ** torch.arange(lad.n_alpha, dtype=s.J.dtype, device="cuda")
             alpha = ls_grid.alpha_grid(alphas, s.ls0, deep, solver.n_trips, lad)
+            search_out = solver.line_search(s.Z, s.U, s.J, kk, KK, p, dV1, dV2, s.ls0, deep, ~active, alpha)
             k1 = (s.Z[:-1], s.U, kk, KK, p.t_w)
             k1_rest = (p.goal, p.tra_pos, p.tra_quat, solver.params, solver.weights, cfg)
             T, B = alpha.shape
@@ -2774,6 +2818,27 @@ class Smoke:
         self.check(same, "phase 19 line search: one iteration's search differs from its one-trial launches")
         self.check(k5_err == 0.0, f"phase 19 line search: K5 differs from its plain version by {k5_err}")
         self.kernels["K5"] = dict(max_abs_err=k5_err, ms=k5_ms, plain_ms=min(walls), bound_ms=b5_ms, bound_by=b5_by,
+                                  library_ms=None)
+        # K6 on the same iteration (B=128) and on the bench point's iteration 8 (B=2048)
+        from learningagileflight_se3_torch.ops.inputs import bench_problems
+        from learningagileflight_se3_torch.solver.ilqr_batched import GRAPH_BLOCK
+
+        bench = make_batched_mpc_solver(QuadParams(), CostWeights(), SolverConfig(
+            horizon=50, max_iters=60, tol=1e-4, gtol=3e-4, ls_adaptive=True, ls_max_trips=4, no_progress_iters=10))
+        with torch.no_grad():
+            s2, p2, _ = bench.setup(*bench_problems(2048, "cuda", seed=0, dtype=torch.float32))
+            s2 = bench.run_blocks(s2, p2, 8, k=2 * GRAPH_BLOCK)
+            k6 = {B: glue_timings(sv, st, pb) for B, (sv, st, pb) in ((128, (solver, s, p)), (2048, (bench, s2, p2)))}
+        for B, (steps, plain_ms, gap) in k6.items():
+            timed = [f"{step} {ms:.4f} ms (bound {b_ms:.4f} ms, {by}, {b_ms / ms:.1%})"
+                     for step, (ms, b_ms, by) in steps.items()]
+            log(f"K6 at B={B} f32 (iteration 8): {', '.join(timed)}"
+                f"; together {sum(v[0] for v in steps.values()):.4f} ms, the plain versions {plain_ms:.3f} ms "
+                f"(host clock, synced, best of 3); max abs diff from the plain versions {gap:.3e} [{self.smi}]")
+            self.check(gap == 0.0, f"phase 19 K6 at B={B}: differs from its plain versions by {gap}")
+        steps, plain_ms, gap = k6[2048]
+        self.kernels["K6"] = dict(max_abs_err=max(v[2] for v in k6.values()), ms=sum(v[0] for v in steps.values()),
+                                  plain_ms=plain_ms, bound_ms=sum(v[1] for v in steps.values()), bound_by="bytes",
                                   library_ms=None)
         # the flight on its step graphs and on its host step loop
         scen_t = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
@@ -2885,6 +2950,9 @@ def drive(s, only):
         dict(name="K5 first_accept", route="cuda", source=src + "line_search.cu",
              replaces=None, launches=s.path_launches["solve"]["K5"], launches_by_path=by_path("K5"),
              **s.kernels["K5"]),
+        dict(name="K6 ddp_glue", route="cuda", source=src + "ddp_glue.cu",
+             replaces=None, launches=s.path_launches["solve"]["K6"], launches_by_path=by_path("K6"),
+             **s.kernels["K6"]),
     ]
     print(json.dumps({"kernels": rows}))
     print(s.smi)

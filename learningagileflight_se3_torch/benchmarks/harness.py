@@ -55,16 +55,16 @@ def synchronizer(device):
 
 
 def kernel_counts() -> dict:
-    """The kernel wrappers' counters now: K1, K2 and K5 launches (those that
-    conditional graph bodies made on the card settled first) and K1's and
-    K2's plain versions' calls (a bench reports its parts' differences)."""
-    from learningagileflight_se3_torch.ops import line_search, riccati_fused, rollout
+    """The kernel wrappers' counters now: K1, K2, K5 and K6 launches (those
+    that conditional graph bodies made on the card settled first) and K1's
+    and K2's plain versions' calls (a bench reports its parts' differences)."""
+    from learningagileflight_se3_torch.ops import ddp_glue, line_search, riccati_fused, rollout
     from learningagileflight_se3_torch.utils import graphs
 
     graphs.settle()
 
     return {"K1": rollout.launches, "K2": riccati_fused.launches, "K5": line_search.launches,
-            "K1_plain": rollout.plain_calls, "K2_plain": riccati_fused.plain_calls}
+            "K6": ddp_glue.launches, "K1_plain": rollout.plain_calls, "K2_plain": riccati_fused.plain_calls}
 
 
 def counts_since(before: dict) -> dict:

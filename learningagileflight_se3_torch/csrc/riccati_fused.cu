@@ -104,7 +104,7 @@ riccati_fused_kernel(const Consts c, const int H, const int B,
                      const T* __restrict__ reg_p,
                      T* __restrict__ kk_out, T* __restrict__ KK_out,
                      T* __restrict__ dV1_out, T* __restrict__ dV2_out,
-                     T* __restrict__ fail_out, T* __restrict__ pg_out) {
+                     unsigned char* __restrict__ fail_out, T* __restrict__ pg_out) {
   __shared__ K2Warp<T> smem[K2_WARPS];
   const int b = blockIdx.x * K2_WARPS + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp: no lane of a live scenario is masked
@@ -536,7 +536,7 @@ riccati_fused_kernel(const Consts c, const int H, const int B,
   if (cc == 0) {
     dV1_out[b] = dv1;
     dV2_out[b] = dv2;
-    fail_out[b] = fail;
+    fail_out[b] = fail > T(0);
     pg_out[b] = pg;
   }
 }
@@ -544,7 +544,7 @@ riccati_fused_kernel(const Consts c, const int H, const int B,
 template <typename T>
 int launch_riccati_fused(const Consts* c, int H, int B, const T* ZU, const T* tw, const T* goal,
                          const T* tp, const T* Hatt, const T* att0, const T* phiz,
-                         const T* phizz, const T* reg, T* kk, T* KK, T* dV1, T* dV2, T* fail,
+                         const T* phizz, const T* reg, T* kk, T* KK, T* dV1, T* dV2, unsigned char* fail,
                          T* pg, cudaStream_t stream) {
   if (B == 0) return 0;
   const int grid = (B + K2_WARPS - 1) / K2_WARPS;
@@ -562,7 +562,7 @@ int laf_riccati_fused_f32(const laf::Consts* c, int H, int B, const float* ZU, c
                           const float* goal, const float* tp, const float* Hatt,
                           const float* att0, const float* phiz, const float* phizz,
                           const float* reg, float* kk, float* KK, float* dV1, float* dV2,
-                          float* fail, float* pg, cudaStream_t stream) {
+                          unsigned char* fail, float* pg, cudaStream_t stream) {
   return laf::launch_riccati_fused<float>(c, H, B, ZU, tw, goal, tp, Hatt, att0, phiz, phizz,
                                           reg, kk, KK, dV1, dV2, fail, pg, stream);
 }
@@ -571,7 +571,7 @@ int laf_riccati_fused_f64(const laf::Consts* c, int H, int B, const double* ZU,
                           const double* tw, const double* goal, const double* tp,
                           const double* Hatt, const double* att0, const double* phiz,
                           const double* phizz, const double* reg, double* kk, double* KK,
-                          double* dV1, double* dV2, double* fail, double* pg,
+                          double* dV1, double* dV2, unsigned char* fail, double* pg,
                           cudaStream_t stream) {
   return laf::launch_riccati_fused<double>(c, H, B, ZU, tw, goal, tp, Hatt, att0, phiz, phizz,
                                            reg, kk, KK, dV1, dV2, fail, pg, stream);

@@ -12,8 +12,9 @@ Each C entry point of K1 to K3 takes the launch constants as a
 the CUDA stream (K1's trial grid, `laf_rollout_trials_*`, the trial count
 before H and B); K4's takes its pointers, its numbers and the stream
 (`TSOLVE_ARGTYPES`), K5's its numbers, its pointers and the stream
-(`LINE_SEARCH_ARGTYPES`).  Each returns `cudaGetLastError()` after the
-launch.
+(`LINE_SEARCH_ARGTYPES`), K6's a `GlueConsts` struct, its sizes, its
+pointers and the stream (`GLUE_ARGTYPES`).  Each returns
+`cudaGetLastError()` after the launch.
 """
 
 from __future__ import annotations
@@ -81,6 +82,30 @@ class KernelConsts(ctypes.Structure):
 
 
 ROLLOUT_TRIALS_ARGTYPES = [ctypes.POINTER(KernelConsts), _i, _i, _i] + [_p] * 12 + [_p]
+
+
+class GlueConsts(ctypes.Structure):
+    """K6's solver settings, passed by value at every launch (ops/ddp_glue.py
+    `glue_consts`); the layout mirrors `laf::GlueConsts` in csrc/ddp_glue.cu
+    (12 doubles, then 8 ints)."""
+
+    _fields_ = [(n, ctypes.c_double) for n in (
+        "tol", "gtol", "stall_gtol", "reg_shrink", "reg_min", "reg_grow", "reg_cap", "reg_max",
+        "wrf2", "wvf2", "wwf2", "wqf",
+    )] + [(n, ctypes.c_int) for n in (
+        "n_alpha", "stride", "n_deep", "n_trials", "escalate", "no_progress_iters", "ls_adaptive", "use_wqf",
+    )]
+
+
+# K6 (csrc/ddp_glue.cu), each entry point after GlueConsts: prepare H, B, 6
+# pointers; decide B, 12 pointers; commit H, B, 42 pointers; the stream last
+_GC = ctypes.POINTER(GlueConsts)
+GLUE_ARGTYPES = {
+    "prepare": [_GC, _i, _i] + [_p] * 6 + [_p],
+    "decide": [_GC, _i] + [_p] * 12 + [_p],
+    "commit": [_GC, _i, _i] + [_p] * 42 + [_p],
+}
+GLUE_ENTRY_POINTS = {f"laf_glue_{step}_{t}": types for step, types in GLUE_ARGTYPES.items() for t in ("f32", "f64")}
 
 
 def kernel_consts(params: QuadParams, weights: CostWeights, cfg: SolverConfig,
@@ -168,6 +193,9 @@ def library() -> KernelLibrary:
         getattr(lib, name).restype = _i
     for name in LINE_SEARCH_ENTRY_POINTS:
         getattr(lib, name).argtypes = LINE_SEARCH_ARGTYPES
+        getattr(lib, name).restype = _i
+    for name, argtypes in GLUE_ENTRY_POINTS.items():
+        getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _i
     for name in ("laf_rollout_ring_bytes", "laf_riccati_unfused_smem_bytes", "laf_tsolve_smem_bytes",
                  "laf_line_search_max_lanes"):

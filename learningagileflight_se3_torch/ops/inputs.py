@@ -179,3 +179,88 @@ def main_path_inputs(H: int, B: int, device="cpu", seed: int = 0, iters: int = 4
                                    dtype=torch.float64).to(device)
     k1 = [Z[:-1], U, kk, KK, t_w, alpha, goal.T, tp, tq.T]
     return [x.contiguous() for x in k1], k2
+
+
+# the lane kinds of `glue_inputs`, lane b of a batch of B taking kind (b + B) % 14
+GLUE_LANES = ("done", "at_cap", "stationary", "stalled", "floor", "blowout", "improved", "improved_window",
+              "failed", "deep", "insane", "tie_stationary", "tie_stalled", "tie_window")
+
+
+def glue_inputs(H: int, B: int, cfg: SolverConfig, dtype=torch.float64, device="cpu", seed: int = 0):
+    """(state, K2's outputs (KK_new, dV1, dV2, fail, pg), K5's (accepted, Z_ls,
+    U_ls, J_ls, acc_idx, ls_trips)) for K6's `decide` and `commit`: random
+    trajectories and gains, and per-lane scalars set up, one GLUE_LANES kind
+    a lane, so that a batch of 14 lanes or more reaches every exit status
+    (the floor exit where cfg has a progress window), deep lanes (where
+    cfg.ls_max_trips < cfg.line_search_steps), improved, stationary and
+    failed lanes, and lanes that tie each |J|-relative tolerance in `dtype`:
+    decrement and the projected gradient at tol * scale and gtol * scale,
+    the regularisation at 64 and reg_max, the progress window's test at its
+    threshold."""
+    from learningagileflight_se3_torch.solver.ilqr_batched import SolveState
+
+    r = np.random.default_rng(seed)
+    kw = dict(dtype=dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(**kw).contiguous()  # noqa: E731
+    cap, npi, n_alpha = 30, max(cfg.no_progress_iters, 2), cfg.line_search_steps
+    J = t(10.0 + 5.0 * np.abs(r.normal(size=B)))
+    scale = J.abs() + 1.0
+    thr, gthr, sthr = cfg.tol * scale, cfg.gtol * scale, cfg.stall_gtol * scale  # in dtype, as the solver forms them
+    dV1, dV2 = -(1.0 + t(np.abs(r.normal(size=B)))), t(0.3 * r.normal(size=B))
+    pg = 0.5 * sthr
+    reg, J_chk, J_ls = t(np.exp(r.uniform(-3, 3, size=B))), J + 5.0, J - t(np.abs(r.normal(size=B)))
+    done, fail, accepted = (np.zeros(B, bool) for _ in range(3))
+    it, n_np, w_it = r.integers(0, cap, size=B), r.integers(0, 2, size=B), r.integers(0, npi - 1, size=B)
+    ls0, acc_idx = r.integers(0, n_alpha, size=B), r.integers(0, n_alpha, size=B)
+    st = r.integers(0, 5, size=B) * (r.uniform(size=B) < 0.2)
+    for b in range(B):
+        kind = GLUE_LANES[(b + B) % len(GLUE_LANES)]
+        accepted[b] = r.uniform() < 0.5
+        if kind == "done":
+            done[b] = True
+        elif kind == "at_cap":
+            it[b] = cap
+        elif kind in ("stationary", "tie_stationary"):
+            dV1[b], dV2[b] = -0.5 * thr[b], 0.0
+            pg[b] = 0.5 * gthr[b]
+            if kind == "tie_stationary":
+                dV1[b], pg[b] = -thr[b], gthr[b]
+        elif kind in ("stalled", "tie_stalled"):
+            # a rising first-order term keeps it from being stationary
+            dV1[b], dV2[b] = thr[b], -2.0 * thr[b] if kind == "tie_stalled" else -1.5 * thr[b]
+            reg[b] = 64.0 if kind == "tie_stalled" else 100.0
+            pg[b] = sthr[b]
+            accepted[b] = False
+        elif kind in ("floor", "tie_window"):
+            w_it[b], accepted[b] = npi - 1, kind == "tie_window"
+            if kind == "floor":
+                J_chk[b] = J[b]
+            else:  # J_chk - J_ls lands on the window's threshold exactly
+                c = J_ls[b] + 1e-5 * torch.arange(1, 2_000_000, **kw)
+                c = c[((c + cfg.tol * (c.abs() + 1.0)) - c) == cfg.tol * (c.abs() + 1.0)][int(r.integers(0, 4))]
+                J_ls[b], J_chk[b] = c, c + cfg.tol * (c.abs() + 1.0)
+        elif kind == "blowout":
+            reg[b], accepted[b] = 2.0 * cfg.reg_max, False
+        elif kind in ("improved", "improved_window"):
+            accepted[b] = True
+            if kind == "improved_window":
+                w_it[b], reg[b] = npi - 1, cfg.reg_max
+        elif kind == "failed":
+            fail[b], accepted[b], reg[b] = True, True, cfg.reg_max
+        elif kind == "deep":
+            n_np[b] = 2 + b % 2
+        elif kind == "insane":
+            J[b] = (float("nan"), float("inf"), 2e12)[b % 3]
+    U = t(r.uniform(0.0, 2.44, size=(H, 4, B)))
+    state = SolveState(
+        Z=t(r.normal(size=(H + 1, 17, B))), U=U, J=J, KK=t(r.normal(size=(H, 4, 17, B))), reg=reg,
+        done=torch.as_tensor(done, device=device), it=torch.as_tensor(it, **i32),
+        pg=t(r.uniform(size=B)), ls_n=torch.tensor(int(r.integers(0, 50)), **i32), ls0=torch.as_tensor(ls0, **i32),
+        n_np=torch.as_tensor(n_np, **i32), J_chk=J_chk, w_it=torch.as_tensor(w_it, **i32),
+        st=torch.as_tensor(st, **i32), max_iters=torch.tensor(cap, **i32))
+    sweep = (t(r.normal(size=(H, 4, 17, B))), dV1, dV2, torch.as_tensor(fail, device=device), pg)
+    search = (torch.as_tensor(accepted, device=device), t(r.normal(size=(H + 1, 17, B))),
+              t(r.uniform(0.0, 2.44, size=(H, 4, B))), J_ls, torch.as_tensor(acc_idx, **i32),
+              torch.tensor(int(r.integers(0, 5)), **i32))
+    return state, sweep, search

@@ -71,9 +71,10 @@ def riccati_backward(ZU, t_w, goal, tra_pos, Hatt, att0, phi_z, phi_zz, reg,
     kw = dict(dtype=dtype, device=device)
     kk = torch.empty((H, NU, B), **kw)
     KK = torch.empty((H, NU, NZ, B), **kw)
-    dV1, dV2, fail, pg = (torch.empty((B,), **kw) for _ in range(4))
+    dV1, dV2, pg = (torch.empty((B,), **kw) for _ in range(3))
+    fail = torch.empty((B,), dtype=torch.bool, device=device)
     consts = build.kernel_consts(params, weights, cfg, boxqp_iters, use_ddp)
     build.launch("laf_riccati_fused", dtype, consts, H, B,
                  [*tensors.values(), kk, KK, dV1, dV2, fail, pg], device)
     launches += 1
-    return kk, KK, dV1, dV2, fail > 0, pg
+    return kk, KK, dV1, dV2, fail, pg

@@ -4,12 +4,20 @@ Port of `learningagileflight_se3_tpu/solver/ilqr_batched.py`
 (`make_batched_mpc_solver_pallas`).  Each DDP iteration runs
 
   1. K2, the fused backward sweep (`ops/riccati_fused.py`): Jacobian blocks,
-     cost quadratics, the projected-gradient adjoint, boxQP and gains;
-  2. the lock-step per-lane backtracking line search, every trip at once:
+     cost quadratics, the projected-gradient adjoint, boxQP and gains, on
+     the trajectory and terminal quadratics that K6's `prepare` lays out;
+  2. K6's `decide`: the active and deep lanes, the (trip, lane) grid of
+     step lengths and whether any lane is live;
+  3. the lock-step per-lane backtracking line search, every trip at once:
      one launch of K1, the closed-loop rollout with cost (`ops/rollout.py`),
-     over the (trip, lane) grid of step lengths, then the first-accept rule
-     over the trips (`ops/line_search.py first_accept`: K5 on the card, its
-     plain version on the CPU), the same on every device and drive.
+     over that grid, then the first-accept rule over the trips
+     (`ops/line_search.py first_accept`: K5 on the card, its plain version
+     on the CPU), the same on every device and drive;
+  4. K6's `commit`: the new state, from the selects of the accepted step to
+     the exit status, every field gated by `go`.
+
+K6 (`ops/ddp_glue.py`) is one CUDA kernel a step on the card and its plain
+PyTorch version on the CPU, which make the same decisions bit for bit.
 
 K1 with zero gains also makes the initial open-loop rollout.  The semantics
 are the JAX solver's: the Tassa regularization schedule, adaptive and
@@ -37,7 +45,8 @@ per solve), then a device-side loop of DDP iterations (`iteration`, a pure
 step on a `SolveState`) whose line search rolls out a fixed number of trips.
 Every trip is gated on the device by whether any lane is still live in the
 search, and every iteration by whether any lane is still live in the solve
-(`go`), so a trip or an iteration run past the loop's exit changes nothing:
+(`go`, which `decide` finds), so a trip or an iteration run past the loop's
+exit changes nothing:
 the solver is not idempotent past its exit (a trip would still accept a
 lane at a deeper step, an iteration would rewrite `pg` and `ls_evals`).
 It runs in one of three ways:
@@ -75,8 +84,9 @@ With utils/profiling.py's spans on, a solve records the device spans
 captured block and in each conditional body of a chain), "solve.copy_in",
 "solve.copy_out" (the graph's static buffers) and "solve.solution", and
 host spans of the same names with "solve.launch" (a block's replay) and
-"solve.read" (the wait for a block's flag), and each line search on the
-card that runs a trip adds [1, its trips] to the counter "ls.grid".  Graphs
+"solve.read" (the wait for a block's flag); on the card each line search
+that runs a trip adds [1, its trips] to the counter "ls.grid", and each
+iteration with `go` true [1, its active lanes] to "ddp.glue".  Graphs
 captured with spans on and off are kept apart.
 """
 
@@ -88,14 +98,11 @@ import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
 from learningagileflight_se3_torch.core.rotations import rodrigues_to_quat
+from learningagileflight_se3_torch.ops import ddp_glue
 from learningagileflight_se3_torch.ops import line_search as ls_grid
 from learningagileflight_se3_torch.ops.riccati_fused import riccati_backward
 from learningagileflight_se3_torch.ops.rollout import rollout_forward, rollout_trials
-from learningagileflight_se3_torch.solver.analytic import (
-    attitude_curvature,
-    attitude_offset,
-    make_final_quadratics,
-)
+from learningagileflight_se3_torch.solver.analytic import attitude_curvature, attitude_offset
 from learningagileflight_se3_torch.solver.ilqr import MPCSolution
 from learningagileflight_se3_torch.solver.parallel_riccati import derivatives, parallel_backward
 from learningagileflight_se3_torch.utils import graphs
@@ -197,7 +204,6 @@ class BatchedSolver:
             raise ValueError(f"unknown cfg.backward: {cfg.backward!r}")
         self.params, self.weights, self.cfg = params, weights, cfg
         self.return_gains = return_gains
-        self.final_quadratics = make_final_quadratics(weights)
         n_alpha, stride = cfg.line_search_steps, cfg.ls_max_trips
         self.n_deep = -(-n_alpha // stride)
         # the most trips any lane can take in one line search
@@ -222,14 +228,21 @@ class BatchedSolver:
         Zs, _, c = self.rollout(Z_ref, U, kk0, KK0, t_w, alpha0, goal, tra_pos, tra_quat)
         return torch.cat([z0[None], Zs]), c
 
+    def ladder(self) -> ls_grid.Ladder:
+        cfg = self.cfg
+        return ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, self.n_deep)
+
+    def glue_consts(self):
+        """K6's constants for this solver's settings (made at each call, so
+        that they follow `n_trips`)."""
+        return ddp_glue.glue_consts(self.cfg, self.weights, self.ladder(), self.n_trips)
+
     def backward(self, Z, U, p: Problem, reg):
         """The backward sweep on the current trajectory: K2 (sequential), or
-        the closed-form derivatives and the parallel-in-time sweep; only the
-        terminal quadratics are formed outside K2."""
+        the closed-form derivatives and the parallel-in-time sweep; the
+        terminal quadratics and the sweep's ZU layout are K6's `prepare`."""
         cfg = self.cfg
-        ZU = torch.cat([Z[:-1], U], dim=1)
-        phi_z, phi_zz = self.final_quadratics(Z[-1].T, p.goal.T)
-        phi_z, phi_zz = phi_z.T.contiguous(), phi_zz.permute(1, 2, 0).contiguous()
+        ZU, phi_z, phi_zz = ddp_glue.prepare(Z, U, p.goal, self.weights, self.glue_consts())
         if cfg.backward == "parallel":
             derivs = derivatives(ZU, p.t_w, p.goal, p.tra_pos, p.Hatt, p.att0, phi_z, phi_zz,
                                  self.params, self.weights, cfg)
@@ -239,22 +252,19 @@ class BatchedSolver:
             self.params, self.weights, cfg, boxqp_iters=cfg.boxqp_iters, use_ddp=cfg.use_ddp,
         )
 
-    def line_search(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip):
+    def line_search(self, Z, U, J, kk, KK, p: Problem, dV1, dV2, ls0, deep, skip, alpha):
         """Per-lane first-acceptable-alpha backtracking, each lane from its
         warm index `ls0`; `deep` lanes sweep the whole ladder at a coarse
         stride; `skip` (finished) lanes enter accepted and cost no trip.
-        Every trip at once: the step length each trip would give each lane
-        (`ls_grid.alpha_grid`), one K1 launch over the (trip, lane) grid and
-        the ladder's recurrence replayed on its costs (`ls_grid.first_accept`).
-        A trip is gated on the device by whether any lane is still live in
-        the search: past that it accepts nothing and counts no trip."""
-        cfg = self.cfg
-        ladder = ls_grid.Ladder(cfg.line_search_steps, cfg.ls_max_trips, self.n_deep)
-        alphas = 0.5 ** torch.arange(ladder.n_alpha, dtype=J.dtype, device=J.device)
-        alpha = ls_grid.alpha_grid(alphas, ls0, deep, self.n_trips, ladder)
+        Every trip at once: `alpha` (n_trips, B) the step length each trip
+        would give each lane (K6's `decide`, or `ls_grid.alpha_grid`), one
+        K1 launch over the (trip, lane) grid and the ladder's recurrence
+        replayed on its costs (`ls_grid.first_accept`).  A trip is gated on
+        the device by whether any lane is still live in the search: past
+        that it accepts nothing and counts no trip."""
         Zn, Un, Jn = rollout_trials(Z[:-1], U, kk, KK, p.t_w, alpha, p.goal, p.tra_pos, p.tra_quat,
-                                    self.params, self.weights, cfg)
-        return ls_grid.first_accept(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, ladder,
+                                    self.params, self.weights, self.cfg)
+        return ls_grid.first_accept(Z, U, J, Zn, Un, Jn, alpha, dV1, dV2, ls0, deep, skip, self.ladder(),
                                     count=grid_counter(J.device))
 
     # ------------------------------------------------------------- the loop
@@ -314,88 +324,25 @@ class BatchedSolver:
         )
         return state, p, cap
 
-    def iteration(self, s: SolveState, p: Problem, go: torch.Tensor) -> SolveState:
+    def iteration(self, s: SolveState, p: Problem, go: Optional[torch.Tensor] = None) -> SolveState:
         """One DDP iteration, every update gated by `go` (0-dim bool on the
-        device; with go False the state comes back unchanged)."""
-        cfg = self.cfg
+        device; with go False the state comes back unchanged).  go None:
+        whether any lane of s is live (`live_any(s)`), as K6's `decide`
+        finds it with no launch of its own."""
+        cfg, glue = self.cfg, self.glue_consts()
         kk, KK_new, dV1, dV2, fail, pg = self.backward(s.Z, s.U, p, s.reg)
-
-        decrement = -(dV1 + dV2)
-        scale = s.J.abs() + 1.0
-        # `sane` guards every |J|-relative tolerance: at an exploded
-        # rollout cost the gates would be trivially satisfied
-        sane = torch.isfinite(s.J) & (s.J.abs() < 1e12)
-        grad_small = pg <= cfg.gtol * scale
-        stationary = (
-            (decrement <= cfg.tol * scale) & (dV1 <= 0) & grad_small & ~fail & sane
-        )
-
-        active = ~s.done & (s.it < s.max_iters)
-        # ladder escalation for live failure streaks; no-op under a full ladder
-        if cfg.ls_max_trips < cfg.line_search_steps:
-            deep = (s.n_np >= 2) & (decrement > cfg.tol * scale) & active
-        else:
-            deep = torch.zeros_like(active)
+        deep, skip, alpha, live = ddp_glue.decide(s, dV1, dV2, cfg, self.ladder(), self.n_trips, glue)
         accepted, Z_ls, U_ls, J_ls, acc_idx, ls_trips = self.line_search(
-            s.Z, s.U, s.J, kk, KK_new, p, dV1, dV2, s.ls0, deep, ~active,
+            s.Z, s.U, s.J, kk, KK_new, p, dV1, dV2, s.ls0, deep, skip, alpha,
         )
-        improved = accepted & ~fail & ~stationary & active
-
-        Z_n = torch.where(improved, Z_ls, s.Z)
-        U_n = torch.where(improved, U_ls, s.U)
-        KK = torch.where(improved | (stationary & active), KK_new, s.KK)
-        J_n = torch.where(improved, J_ls, s.J)
-
-        reg = s.reg
-        reg_n = torch.where(
-            active,
-            torch.where(
-                improved,
-                torch.clamp_min(reg * cfg.reg_shrink, cfg.reg_min),
-                torch.clamp_max(reg * cfg.reg_grow, cfg.reg_max * 2.0),
-            ),
-            reg,
-        )
-        grad_smallish = pg <= cfg.stall_gtol * scale
-        stalled = (
-            ~improved & ~stationary & (decrement <= cfg.tol * scale)
-            & (reg >= 64.0) & grad_smallish & sane
-        )
-        # progress window: terminate when a whole window of iterations
-        # made less than tol cumulative progress
-        np_n = torch.where(active, torch.where(improved, 0, s.n_np + 1), s.n_np)
-        w_n = s.w_it + active.to(s.w_it.dtype)
-        if cfg.no_progress_iters > 0:
-            window_full = w_n >= cfg.no_progress_iters
-        else:
-            window_full = torch.zeros_like(active)
-        window_progress = (s.J_chk - J_n) > cfg.tol * (J_n.abs() + 1.0)
-        floor_exit = window_full & ~window_progress & sane
-        J_chk = torch.where(window_full & active, J_n, s.J_chk)
-        w_it = torch.where(window_full & active, 0, w_n)
-        blowout = ~improved & ~stationary & (reg > cfg.reg_max)
-        done = s.done | (active & (stationary | stalled | floor_exit | blowout))
-        # exit taxonomy; each reason implies done, so writing under `active` is exact
-        st = s.st
-        st = torch.where(active & stationary, 1, st)
-        st = torch.where(active & ~stationary & stalled, 2, st)
-        st = torch.where(active & ~stationary & ~stalled & floor_exit, 3, st)
-        st = torch.where(active & ~stationary & ~stalled & ~floor_exit & blowout, 4, st)
-        it = s.it + active.to(s.it.dtype)
-        ls0 = s.ls0
-        if cfg.ls_adaptive:
-            ls0 = torch.where(improved & active, torch.clamp_min(acc_idx - 1, 0), ls0)
-        new = SolveState(Z_n, U_n, J_n, KK, reg_n, done, it, pg, s.ls_n + ls_trips, ls0, np_n,
-                         J_chk, w_it, st, s.max_iters)
-        # past the loop's exit an iteration would still rewrite pg (every
-        # lane's) and ls_evals: `go` makes it a no-op
-        return SolveState(*(torch.where(go, a, b) for a, b in zip(new, s)))
+        return ddp_glue.commit(s, KK_new, dV1, dV2, fail, pg, accepted, Z_ls, U_ls, J_ls, acc_idx, ls_trips,
+                               live if go is None else go, cfg, glue, count=glue_counter(s.J.device))
 
     def run_block(self, s: SolveState, p: Problem, k: int) -> SolveState:
         """k gated iterations with no host read: what a graph captures."""
         with spans.device("solve.block", s.J.device):
             for _ in range(k):
-                s = self.iteration(s, p, live_any(s))
+                s = self.iteration(s, p)
         return s
 
     def run_eager(self, s: SolveState, p: Problem, cap: int) -> SolveState:
@@ -412,9 +359,8 @@ class BatchedSolver:
         each under a conditional IF node of the capture that is open ("chain",
         the carry `s` written in place), or each run ("blocks", the CPU's
         check of what the chain captures); no host read either way."""
-        body = lambda st, go: self.iteration(st, p, go)  # noqa: E731
-        return graphs.while_blocks(s, live_any, body, GRAPH_BLOCK, -(-cap // GRAPH_BLOCK), drive,
-                                   span="solve.block")
+        return graphs.while_blocks(s, live_any, lambda st: self.iteration(st, p), GRAPH_BLOCK,
+                                   -(-cap // GRAPH_BLOCK), drive, span="solve.block")
 
     def run_blocks(self, s: SolveState, p: Problem, cap: int, k: Optional[int] = None) -> SolveState:
         """The graph loop's schedule with the blocks run in place of the
@@ -554,11 +500,23 @@ class BatchedSolver:
             return self.solution(s)
 
 
+def _card_counter(name: str, device) -> Optional[torch.Tensor]:
+    """The spans counter `name` on a CUDA `device` where spans are on (else
+    None), made at the first call, which a capture's warm-up makes outside
+    it."""
+    return spans.counter(name, device) if spans.on and torch.device(device).type == "cuda" else None
+
+
 def grid_counter(device) -> Optional[torch.Tensor]:
-    """The spans counter "ls.grid" on a CUDA `device` where spans are on
-    (else None): [line searches on the grid that ran a trip, their trips].
-    Made at the first call, which a capture's warm-up makes outside it."""
-    return spans.counter("ls.grid", device) if spans.on and torch.device(device).type == "cuda" else None
+    """The spans counter "ls.grid" on a card: [line searches on the grid that
+    ran a trip, their trips]."""
+    return _card_counter("ls.grid", device)
+
+
+def glue_counter(device) -> Optional[torch.Tensor]:
+    """The spans counter "ddp.glue" on a card: [DDP iterations that K6's
+    `commit` ran with `go` true, the active lane-iterations among them]."""
+    return _card_counter("ddp.glue", device)
 
 
 def make_batched_solver(params: QuadParams, weights: CostWeights, cfg: SolverConfig,

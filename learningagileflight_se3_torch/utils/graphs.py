@@ -46,7 +46,7 @@ from learningagileflight_se3_torch.utils.profiling import spans
 host_reads = 0       # host reads of a device value by the loops (each waits for the card)
 eager_on_card = False  # set by solver/watch.py's watchers while they watch
 
-_ledgers = {}        # device -> int64 (5,) launches made in conditional bodies, not yet settled
+_ledgers = {}        # device -> int64 (6,) launches made in conditional bodies, not yet settled
 _body_streams = {}   # device -> the stream that captures conditional bodies (and warms up)
 _body_pools = {}     # device -> the memory pool of the bodies' allocations
 
@@ -75,9 +75,9 @@ def drive(device) -> str:
 
 
 def _wrappers():
-    from learningagileflight_se3_torch.ops import line_search, riccati_fused, riccati_unfused, rollout, tsolve
+    from learningagileflight_se3_torch.ops import ddp_glue, line_search, riccati_fused, riccati_unfused, rollout, tsolve
 
-    return rollout, riccati_fused, riccati_unfused, tsolve, line_search
+    return rollout, riccati_fused, riccati_unfused, tsolve, line_search, ddp_glue
 
 
 def _counts():
@@ -224,21 +224,23 @@ def _pool_bytes(pools) -> int:
                if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
-def _block(carry, pred, body, k: int, span: Optional[str]):
-    """k gated iterations: each computes its own `go`; a device span `span` around them."""
+def _block(carry, body, k: int, span: Optional[str]):
+    """k gated iterations, each its own gate; a device span `span` around them."""
     with spans.device(span, carry[0].device) if span else contextlib.nullcontext():
         for _ in range(k):
-            carry = body(carry, pred(carry))
+            carry = body(carry)
     return carry
 
 
 def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str, span: Optional[str] = None):
-    """The capped loop `while pred(carry): carry = body(carry, go)`.
+    """The capped loop `while pred(carry): carry = body(carry)`.
 
     carry: a tuple (or NamedTuple) of tensors; pred(carry) -> 0-dim bool on
     the carry's device, True while an iteration would change the carry (its
-    cap included); body(carry, go) -> carry, one iteration with every update
-    gated by `go`.  k * n_blocks must reach the loop's cap.  drive:
+    cap included); body(carry) -> carry, one iteration with every update
+    gated on the device by pred(carry), which the body computes itself (the
+    solver's DDP iteration finds it inside a kernel it runs anyway).  k *
+    n_blocks must reach the loop's cap.  drive:
     "blocks" or "chain" (see the module's docstring; "chain" only while a
     capture is open, and its carry must be tensors made before the chain:
     the bodies write into them, a field that shares another's buffer into a
@@ -247,7 +249,7 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str, span: Opt
     "chain".  Returns the final carry."""
     if drive == "blocks":
         for _ in range(n_blocks):
-            carry = _block(carry, pred, body, k, span)
+            carry = _block(carry, body, k, span)
         return carry
     if drive != "chain":
         raise ValueError(f"unknown drive: {drive!r}")
@@ -259,7 +261,7 @@ def while_blocks(carry, pred, body, k: int, n_blocks: int, drive: str, span: Opt
     carry = carry._make(fields) if hasattr(carry, "_make") else tuple(fields)
     for _ in range(n_blocks):
         with if_node(pred(carry)):
-            out = _block(carry, pred, body, k, span)
+            out = _block(carry, body, k, span)
             for dst, src in zip(carry, out):
                 if dst is not src:
                     dst.copy_(src)

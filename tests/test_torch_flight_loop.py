@@ -167,7 +167,7 @@ def test_solver_chain_blocks_equal_eager(exit_by, warm):
     assert graphs.host_reads == n
     assert _unequal(chain, end) == []
     s, p, _ = solver.setup(*args, U_init=U_init, max_iters=cap)
-    again = graphs.while_blocks(chain, ilqr_batched.live_any, lambda st, go: solver.iteration(st, p, go),
+    again = graphs.while_blocks(chain, ilqr_batched.live_any, lambda st: solver.iteration(st, p),
                                 ilqr_batched.GRAPH_BLOCK, 1, "blocks")
     assert _unequal(again, end) == []
 

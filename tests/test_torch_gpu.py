@@ -6,9 +6,10 @@ collect on the card against the CPU, the entry points' default device,
 the flagship forward step on the kernels, and the solver's DDP loop as a
 replayed CUDA graph against the eager host loop (equal field for field, no
 aliasing, the launch counts, the parallel sweep, the watchers' eager
-loop, a failed capture raising), and the flight loop's graphs (the
+loop, a failed capture raising), the flight loop's graphs (the
 t-solver's chain, the tick's graph, the closed loop's step graphs) against
-their eager drives.
+their eager drives, and K6, the DDP iteration's glue, against its plain
+versions.
 Marked `gpu`; skipped where torch.cuda.is_available() is False.
 
 This file imports neither JAX nor tests/conftest.py's fixtures, so it runs on
@@ -708,28 +709,30 @@ def test_graph_solution_outlives_the_next_replay(cuda):
 
 def test_graph_launch_counts(cuda):
     """The wrappers count kernel executions: a capture launches nothing and
-    each replay adds one block's K1 / K2 launches.  So a graph solve counts
-    the eager solve's launches plus the gated ones: k K2 launches a block,
-    one K1 launch an iteration (its line search on the grid, as on the
-    eager loop), the rest of the last live block and the one queued behind
-    it."""
+    each replay adds one block's K1 / K2 / K6 launches.  So a graph solve
+    counts the eager solve's launches plus the gated ones: k K2 launches a
+    block, one K1 launch an iteration (its line search on the grid, as on
+    the eager loop) and three of K6 (prepare, decide, commit), the rest of
+    the last live block and the one queued behind it."""
+    from learningagileflight_se3_torch.ops import ddp_glue
     from learningagileflight_se3_torch.solver import ilqr_batched
 
     B, k, cap = 256, ilqr_batched.GRAPH_BLOCK, GRAPH_CFGS["bench"]["max_iters"]
     solver, args = _graph_case(B, torch.float32, "bench")
+    count = lambda: (rollout.launches, riccati_fused.launches, ddp_glue.launches)  # noqa: E731
     with torch.no_grad():
         solver.prepare(B, torch.float32, "cuda")
-        n1, n2 = rollout.launches, riccati_fused.launches
+        n = count()
         eager = solver.solution(solver.run_eager(*solver.setup(*args)))
-        e1, e2 = rollout.launches - n1, riccati_fused.launches - n2
-        n1, n2 = rollout.launches, riccati_fused.launches
+        e = [b - a for a, b in zip(n, count())]
+        n = count()
         graph = solver(*args)
-        g1, g2 = rollout.launches - n1, riccati_fused.launches - n2
+        g = [b - a for a, b in zip(n, count())]
     assert _unequal(graph, eager) == []
     iterations = int(eager.iterations.max())
     blocks = min(-(-iterations // k) + 1, -(-cap // k))
-    assert (e1, e2) == (1 + iterations, iterations)
-    assert (g1, g2) == (1 + blocks * k, blocks * k)
+    assert e == [1 + iterations, iterations, 3 * iterations]
+    assert g == [1 + blocks * k, blocks * k, 3 * blocks * k]
 
 
 def test_watchers_run_the_eager_loop_on_the_card(cuda):
@@ -876,7 +879,11 @@ def test_flight_fixed_point_is_one_kernel(cuda, monkeypatch):
     the spans on, reads the same iterations under the step graphs, under the
     host step loop and from the CPU's eager loop on each step's arguments,
     and "tsolve.fused" one fixed point a step, at most 8 lanes' worth of
-    those iterations; (3) the tick still meets the f64 replay contract."""
+    those iterations; the replans' K6 counter "ddp.glue" (iterations with
+    `go` true, at most 8 active lanes each) reads the same under both, and
+    K6 launches three times an iteration that either runs; (3) the tick
+    still meets the f64 replay contract."""
+    from learningagileflight_se3_torch.ops import ddp_glue
     from learningagileflight_se3_torch.sim.bench import flight_solver_config
     from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
     from learningagileflight_se3_torch.sim.tsolver import TraversalTimeSolver
@@ -910,12 +917,16 @@ def test_flight_fixed_point_is_one_kernel(cuda, monkeypatch):
         # the host step loop's replans replay the solver's own block graph: its
         # capture's warm-up block adds to the counters, so it is made here too
         sim(scen[:8], gate_noise=noise[:8, :steps], drive="eager")
-        got = {}
+        got, k6 = {}, {}
         for drive in ("graph", "eager"):
             spans.reset()
             calls.clear()
+            graphs.settle()
+            n = ddp_glue.launches
             sim(scen[:8], gate_noise=noise[:8, :steps], drive=None if drive == "graph" else drive)
             got[drive] = spans.collect()["counters"]
+            graphs.settle()
+            k6[drive] = ddp_glue.launches - n
     finally:
         spans.disable()
     assert ifs and not any(ifs) and sim.captures.count == 2
@@ -929,6 +940,9 @@ def test_flight_fixed_point_is_one_kernel(cuda, monkeypatch):
     assert it == [0, int(cpu.count[1])] and it[1] > steps
     fused = got["eager"]["tsolve.fused"]
     assert fused[0] == steps and it[1] <= fused[1] <= 8 * it[1]
+    glue = got["eager"]["ddp.glue"]
+    assert 0 < glue[0] <= glue[1] <= 8 * glue[0]
+    assert min(k6.values()) >= 3 * glue[0] and all(n % 3 == 0 for n in k6.values()), k6
     z = np.load(CONTRACT)
     contract = SolverConfig(horizon=int(z["solver_horizon"]), max_iters=int(z["solver_max_iters"]),
                             u_ub=float(z["solver_u_ub"]))
@@ -1141,3 +1155,135 @@ def test_grid_flight_equals_the_ladder(cuda, dtype):
                if torch.is_tensor(a) and not torch.equal(a, b)]
     assert unequal == []
     assert k5["graph"] > 0 and k5["eager"] > 0
+
+
+# ---------------------------------------------------------------- K6, the DDP iteration's glue
+
+
+def _plain_glue():
+    """{step: K6's plain version with its wrapper's signature}."""
+    from learningagileflight_se3_torch.ops import ddp_glue
+
+    return dict(prepare=lambda Z, U, goal, weights, consts: ddp_glue.prepare_plain(Z, U, goal, weights),
+                decide=lambda s, dV1, dV2, cfg, lad, n, consts: ddp_glue.decide_plain(s, dV1, dV2, cfg, lad, n),
+                commit=lambda *a, count=None: ddp_glue.commit_plain(*a[:-1]))
+
+
+def _glue_checked(monkeypatch, mismatches, calls):
+    """Patch K6's three wrappers so that each call also runs the step's plain
+    version on the same CUDA tensors and records, in `mismatches`, every
+    output that is not torch.equal to the kernel's (NaN where NaN); the
+    kernel's outputs are returned, and `calls` counts the calls by step."""
+    from learningagileflight_se3_torch.ops import ddp_glue
+
+    def same(a, b):
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()) \
+            if a.is_floating_point() else torch.equal(a, b)
+
+    real = dict(prepare=ddp_glue.prepare, decide=ddp_glue.decide, commit=ddp_glue.commit)
+    plain = _plain_glue()
+
+    def checked(step):
+        def call(*a, **kw):
+            n = ddp_glue.launches
+            out = real[step](*a, **kw)
+            assert ddp_glue.launches == n + 1
+            want = plain[step](*a, **kw)
+            calls[step] = calls.get(step, 0) + 1
+            mismatches.extend((step, calls[step], i) for i, (x, y) in enumerate(zip(out, want)) if not same(x, y))
+            return out
+        return call
+
+    for step in real:
+        monkeypatch.setattr(ddp_glue, step, checked(step))
+
+
+GLUE_SOLVES = ["flight-replan-B128-f32", "bench-B2048-f32", "bench-B2304-f32", "tick-B1-f64"]
+
+
+@pytest.mark.parametrize("case", GLUE_SOLVES)
+def test_glue_kernel_matches_plain_on_solver_iterations(cuda, case, monkeypatch):
+    """K6 on the card against its plain version on the card, on the inputs of
+    every DDP iteration of real solves on the eager drive: the replans of
+    seed 2024's first 128 scenarios flown 21 steps (f32, the flight's
+    config), cold bench.py problems at the bench point (B=2048 and 2304,
+    f32) and the deployed tick at B=1 in f64.  Every output of prepare,
+    decide and commit torch.equal, one launch a call."""
+    mismatches, calls = [], {}
+    if case.startswith("flight"):
+        from learningagileflight_se3_torch.sim.bench import flight_solver_config
+        from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+        from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+        scen, noise = bench_scenarios(bench_scenarios_path(2024))
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=21, device="cuda")
+        monkeypatch.setattr(graphs, "eager_on_card", True)
+        _glue_checked(monkeypatch, mismatches, calls)
+        with torch.no_grad():
+            sim(torch.as_tensor(scen, dtype=torch.float32, device="cuda"), gate_noise=noise[:, :21])
+    else:
+        cfg, B, dtype = case.split("-")
+        solver, args = _graph_case(int(B[1:]), getattr(torch, {"f32": "float32", "f64": "float64"}[dtype]), cfg)
+        _glue_checked(monkeypatch, mismatches, calls)
+        with torch.no_grad():
+            solver(*args, drive="eager")
+    assert calls and set(calls) == {"prepare", "decide", "commit"} and len(set(calls.values())) == 1, calls
+    assert mismatches == [], mismatches[:10]
+
+
+def test_glue_solves_equal_the_plain_glue(cuda, monkeypatch):
+    """A whole bench-point solve (B=2048, f32) and seed 2024's 128 x 500
+    flight on their graph drives, with K6 and with its plain versions
+    patched in (each captures its own graphs): every MPCSolution field and
+    every ClosedLoopLog field torch.equal."""
+    from learningagileflight_se3_torch.ops import ddp_glue
+    from learningagileflight_se3_torch.sim.bench import flight_solver_config
+    from learningagileflight_se3_torch.sim.closed_loop import make_closed_loop_sim
+    from learningagileflight_se3_torch.utils.weights import bench_scenarios, bench_scenarios_path, load_dnn2
+
+    scen, noise = bench_scenarios(bench_scenarios_path(2024))
+    scen = torch.as_tensor(scen, dtype=torch.float32, device="cuda")
+    sols, logs, k6 = {}, {}, {}
+    for glue in ("kernel", "plain"):
+        if glue == "plain":
+            for step, fn in _plain_glue().items():
+                monkeypatch.setattr(ddp_glue, step, fn)
+        graphs.settle()
+        n = ddp_glue.launches
+        solver, args = _graph_case(2048, torch.float32, "bench")
+        with torch.no_grad():
+            sols[glue] = solver(*args)
+        sim = make_closed_loop_sim(load_dnn2(), solver_cfg=flight_solver_config(), steps=500, device="cuda")
+        logs[glue] = sim(scen, generator=torch.Generator(device="cuda").manual_seed(2024), gate_noise=noise)
+        graphs.settle()
+        k6[glue] = ddp_glue.launches - n
+    assert _unequal(sols["kernel"], sols["plain"]) == []
+    unequal = [f for f, a, b in zip(logs["kernel"]._fields, logs["kernel"], logs["plain"])
+               if torch.is_tensor(a) and not torch.equal(a, b)]
+    assert unequal == []
+    assert k6["kernel"] > 0 and k6["plain"] == 0, k6
+
+
+@pytest.mark.parametrize("B, dtype", [(128, torch.float32), (2048, torch.float32)])
+def test_captured_iteration_is_six_kernels(cuda, B, dtype):
+    """One DDP iteration captured into a CUDA graph (go its own, as in a
+    block) replays as at most 6 kernels (K6's prepare, K2, K6's decide, K1
+    over the grid, K5, K6's commit; copies and sets not counted), at the
+    flight's batch and the bench point's, and leaves the carry as the eager
+    iteration does."""
+    from flightbench.tracing import session
+
+    solver, args = _graph_case(B, dtype, "bench")
+    with torch.no_grad():
+        s, p, _ = solver.setup(*args)
+        s = solver.run_eager(*solver.setup(*args, max_iters=3))._replace(max_iters=s.max_iters)  # lanes moved
+        want = solver.iteration(s, p)
+        g = graphs.Captures().capture(lambda: solver.iteration(s, p))
+        box = []
+        with session(box):
+            g.replay()
+    kernels = [k.name for k in box[0].kernels()]
+    assert len(kernels) <= 6, kernels
+    for name in ("glue_prepare", "riccati_fused", "glue_decide", "rollout", "line_search", "glue_commit"):
+        assert sum(name in k for k in kernels) == 1, (name, kernels)
+    assert _unequal(g.out, want) == []

@@ -17,8 +17,8 @@ versions:
     C entry points on CPU tensors, are held against their plain PyTorch
     versions in f64 at batch sizes that exercise the ragged edges (1, 5,
     20, 33 lanes); K4 against the t-solver's eager loop, in f64 and f32;
-    K1 over a grid of trials against one launch a trial, and K5 against its
-    plain version, bit for bit in f64 and f32.
+    K1 over a grid of trials against one launch a trial, and K5 and K6
+    against their plain versions, bit for bit in f64 and f32.
     This checks the kernels' indexing, barriers and masking, not the CUDA
     compiler's code or the card's numerics.
 """
@@ -34,10 +34,10 @@ import pytest
 import torch
 
 from learningagileflight_se3_torch.config import CostWeights, QuadParams, SolverConfig
-from learningagileflight_se3_torch.ops import build, riccati_fused, riccati_unfused, rollout
+from learningagileflight_se3_torch.ops import build, ddp_glue, riccati_fused, riccati_unfused, rollout
 from learningagileflight_se3_torch.ops import line_search as ls_grid
 from learningagileflight_se3_torch.ops.inputs import (
-    as_tensors, backward_inputs, main_path_inputs, rollout_inputs, with_failing_lanes,
+    GLUE_LANES, as_tensors, backward_inputs, glue_inputs, main_path_inputs, rollout_inputs, with_failing_lanes,
 )
 from learningagileflight_se3_torch.sim.tsolver import make_traversal_time_solver
 from learningagileflight_se3_torch.utils.weights import load_dnn2
@@ -89,6 +89,7 @@ __device__ int min(int, int);
 __device__ float cosf(float); __device__ double cos(double);
 __device__ float sinf(float); __device__ double sin(double);
 __device__ float atanf(float); __device__ double atan(double);
+__device__ float pow(float, float); __device__ double pow(double, double);
 __device__ bool isfinite(float); __device__ bool isfinite(double);
 __device__ int atomicAdd(int*, int); __device__ int atomicMax(int*, int); __device__ int atomicExch(int*, int);
 __device__ void __threadfence();
@@ -122,7 +123,7 @@ template <class T> cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) 
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 232448; return cudaSuccess; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
-using std::fabs; using std::isfinite; using std::isnan; using std::min; using std::sqrt;
+using std::fabs; using std::isfinite; using std::isnan; using std::min; using std::pow; using std::sqrt;
 // the rounded operations: one IEEE operation each on the host, as on the card
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -269,6 +270,9 @@ def emulated(tmp_path_factory):
         for name in names:
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int
+    for name, argtypes in build.GLUE_ENTRY_POINTS.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -288,9 +292,10 @@ def _sweep_close(out, ref, tol):
 def _k2(lib, args, P, W, C):
     H, _, B = args[0].shape
     out = [torch.full((H, 4, B), np.nan, dtype=torch.float64), torch.full((H, 4, 17, B), np.nan, dtype=torch.float64)]
-    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(4)]
+    out += [torch.full((B,), np.nan, dtype=torch.float64) for _ in range(2)]
+    out += [torch.ones((B,), dtype=torch.bool), torch.full((B,), np.nan, dtype=torch.float64)]
     _call(lib, "laf_riccati_fused", build.kernel_consts(P, W, C, C.boxqp_iters, C.use_ddp), H, B, args + out)
-    return out[:4] + [out[4] > 0, out[5]]
+    return out
 
 
 VARIANTS = {
@@ -555,3 +560,85 @@ def test_emulated_line_search_matches_plain(emulated, dtype, lanes):
             assert a.dtype == b.dtype and _same(a, b), (case, name)
         ran = int(trips) > 0
         assert count.tolist() == [5 + ran, 6 + int(trips)], case
+
+
+def _glue(lib, step, dtype, *args):
+    """K6's `step` through its C entry point on CPU tensors (None for no count)."""
+    fn = getattr(lib, f"laf_glue_{step}_{'f64' if dtype == torch.float64 else 'f32'}")
+    assert fn(*[a.data_ptr() if torch.is_tensor(a) else a for a in args], None) == 0
+
+
+# (ls_adaptive, no_progress_iters, ls_max_trips): each of the first two on and off, deep lanes or none
+GLUE_CFGS = {"adaptive-window-deep": (True, 10, 4), "window-full_ladder": (False, 10, 14),
+             "adaptive-full_ladder": (True, 0, 14), "plain-deep": (False, 0, 4)}
+
+
+@pytest.mark.parametrize("case", list(GLUE_CFGS))
+def test_emulated_glue_matches_plain(emulated, case):
+    """K6 through its three C entry points against prepare_plain,
+    decide_plain and commit_plain, in f64 and f32 at 1, 5, 20 and 33 lanes
+    (ops/inputs.py glue_inputs: one lane kind a lane, ties at every
+    tolerance): every output bit for bit (NaN where NaN), `go` from decide
+    and commit under go true and false, the counter [1, the active lanes]
+    where go holds; over the batches every exit status (the floor exit
+    where the window is on), deep lanes where the ladder escalates,
+    improved, stationary-only and unchanged lanes, and the adaptive ls0
+    moving where it is on.  prepare with and without the goal-attitude
+    term, a NaN and an infinite attitude among the final states."""
+    adaptive, npi, trips = GLUE_CFGS[case]
+    H = 6
+    cfg = SolverConfig(horizon=H, tol=1e-4, gtol=3e-4, ls_adaptive=adaptive, ls_max_trips=trips,
+                       no_progress_iters=npi)
+    n_deep = -(-cfg.line_search_steps // trips)
+    ladder = ls_grid.Ladder(cfg.line_search_steps, trips, n_deep)
+    n_trials = min(cfg.line_search_steps, max(trips, n_deep))
+    seen = dict(st=set(), deep=False, improved=False, kk_only=False, kept=False, ls0=False)
+    for dtype in (torch.float64, torch.float32):
+        for B in (1, 5, 20, 33):
+            s, sweep, search = glue_inputs(H, B, cfg, dtype, seed=B)
+            weights = CostWeights(wqf=2.0) if B % 2 else CostWeights()
+            consts = ddp_glue.glue_consts(cfg, weights, ladder, n_trials)
+            goal = torch.randn((3, B), generator=torch.Generator().manual_seed(B), dtype=torch.float64).to(dtype)
+            Z = s.Z.clone()
+            Z[-1, 6, 0], Z[-1, 8, B - 1] = np.nan, -np.inf
+            want = ddp_glue.prepare_plain(Z, s.U, goal, weights)
+            got = [torch.full_like(w, np.nan) for w in want]
+            _glue(emulated, "prepare", dtype, ctypes.byref(consts), H, B, Z, s.U, goal, *got)
+            for name, a, b in zip(("ZU", "phi_z", "phi_zz"), got, want):
+                assert _same(a, b), (dtype, B, name)
+
+            want = ddp_glue.decide_plain(s, sweep[1], sweep[2], cfg, ladder, n_trials)
+            got = [torch.ones(B, dtype=torch.bool), torch.ones(B, dtype=torch.bool),
+                   torch.full((n_trials, B), np.nan, dtype=dtype), torch.zeros((), dtype=torch.bool)]
+            _glue(emulated, "decide", dtype, ctypes.byref(consts), B, s.J, sweep[1], sweep[2], s.done, s.it,
+                  s.max_iters, s.n_np, s.ls0, *got)
+            for name, a, b in zip(("deep", "skip", "alpha", "go"), got, want):
+                assert a.dtype == b.dtype and _same(a, b), (dtype, B, name)
+            seen["deep"] |= bool(want[0].any())
+
+            for go in (True, False):
+                go_t = torch.tensor(go)
+                want = ddp_glue.commit_plain(s, *sweep, *search, go_t, cfg)
+                new = [torch.full_like(a, np.nan) if a.is_floating_point() else torch.full_like(a, 7)
+                       for a in s[:-1]]
+                count = torch.tensor([5, 6], dtype=torch.int32)
+                _glue(emulated, "commit", dtype, ctypes.byref(consts), H, B, go_t, *s, *sweep, *search, *new,
+                      count)
+                for name, a, b in zip(s._fields, new, want):
+                    assert a.dtype == b.dtype and _same(a, b), (dtype, B, go, name)
+                active = ~s.done & (s.it < s.max_iters)
+                assert count.tolist() == ([6, 6 + int(active.sum())] if go else [5, 6]), (dtype, B, go)
+                if go:
+                    moved = ~torch.eq(want.Z, s.Z).all(dim=(0, 1))
+                    took_kk = ~torch.eq(want.KK, s.KK).all(dim=(0, 1, 2))
+                    seen["st"] |= set(want.st[want.st != s.st].tolist())
+                    seen["improved"] |= bool(moved.any())
+                    seen["kk_only"] |= bool((took_kk & ~moved).any())
+                    seen["kept"] |= bool((~took_kk & active).any())
+                    seen["ls0"] |= bool((want.ls0 != s.ls0).any())
+                else:
+                    assert [f for f, a, b in zip(s._fields, s, want) if not _same(a, b)] == []
+    assert seen["st"] == ({1, 2, 3, 4} if npi else {1, 2, 4}), seen
+    assert seen["deep"] == (trips < cfg.line_search_steps) and seen["ls0"] == adaptive, seen
+    assert seen["improved"] and seen["kk_only"] and seen["kept"], seen
+    assert len(GLUE_LANES) <= 33  # the 33-lane batch holds every lane kind
